@@ -1,0 +1,823 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA MicroNN port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py            # full run (one card, ~a few minutes)
+    python3 chip_smoke.py --quick    # build + one launch of each kernel
+
+Phases (any failure exits non-zero and prints no result line):
+  1. device   -- name, count, `nvidia-smi` name and power limit.
+  2. build    -- nvcc builds the three kernels from src/repro_torch/kernels/
+                 csrc, all at once, into build/kernels/ (ptxas -v printed).
+  3. main     -- the resident engine at real size: the synthetic SIFT set
+                 (1,000,000 x 128, l2, 2 attributes, seed 0) ingested into
+                 SQLite, build() with the int8 tier (rerank_factor=4),
+                 queries at Q in {1, 32, 512} on the int8 and f32 tiers,
+                 exact queries, a post-filter query, upserts, a delete and
+                 a recover() into a second engine. Every kernel launch
+                 counter is zeroed just before and read just after; each
+                 must be > 0. Recall is held against a brute-force oracle
+                 on the card.
+  4. kernels  -- each kernel against its plain PyTorch version on the card
+                 at the main path's shapes plus edge cases, then timed with
+                 CUDA events beside the plain version and a PyTorch
+                 yardstick (library_ms), with its roofline bound.
+  5. result   -- one JSON line of kernels, the card's name and power limit,
+                 and the contract line {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+WORK = ROOT / "build" / "smoke"
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the roofline denominators.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12          # float32 outside the tensor cores
+INT8_OPS = 1979e12         # int8 tensor-core rate
+
+KERNEL_META = {
+    "ivf_scan_topk": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ivf_scan.cu",
+        replaces="src/repro/kernels/ivf_scan.py:129"),
+    "sq_scan_topk": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/sq_scan.cu",
+        replaces="src/repro/kernels/sq_scan.py:131"),
+    "kmeans_assign": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/kmeans_assign.cu",
+        replaces="src/repro/kernels/kmeans_assign.py:56"),
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 1-2: device and build
+# ---------------------------------------------------------------------------
+
+
+def device_info():
+    import torch
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"device: {name}  count={count}  torch={torch.__version__} "
+        f"cuda={torch.version.cuda}")
+    log(f"nvidia-smi: {card}")
+    return name, count, card
+
+
+def build_kernels():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    secs = build.build_all()
+    for name, s in secs.items():
+        log(f"build {name}: {s:.1f} s")
+        for line in build.BUILD_LOGS.get(name, "").splitlines():
+            if "ptxas" in line:
+                log(f"  {line.strip()}")
+    log(f"phase build: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# timing and comparison helpers
+# ---------------------------------------------------------------------------
+
+
+def cuda_ms(fn, iters=10):
+    """Mean device time of fn() over `iters` runs after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def topk_tol(queries, v2_max):
+    from repro_torch.testing import score_tol
+    return score_tol(queries.detach().cpu().numpy(), v2_max)
+
+
+def compare(ref, got, tol, what):
+    import torch
+    from repro_torch.testing import compare_topk
+    torch.cuda.synchronize()
+    err, ok, bad = compare_topk(ref[0].cpu().numpy(), ref[1].cpu().numpy(),
+                                got[0].cpu().numpy(), got[1].cpu().numpy(),
+                                tol)
+    log(f"  {what}: max_abs_err={err:.3e} ids_equal={ok} bad_rows={bad}")
+    return err, ok
+
+
+# ---------------------------------------------------------------------------
+# phase 4: each kernel against its plain version, timed
+# ---------------------------------------------------------------------------
+
+
+def scan_work(part_ids, qsel, valid, n_q):
+    """What a scan's inputs need, counted from this run's data: (probed
+    partitions that some query selects, their valid rows, valid rows summed
+    over the selected (query, partition) pairs). The kernels skip
+    unselected pairs and read payload for valid rows only."""
+    import torch
+    rows_per = valid[part_ids.long()].sum(1).to(torch.float64)       # [n]
+    if qsel is None:
+        return part_ids.shape[0], float(rows_per.sum()), \
+            n_q * float(rows_per.sum())
+    sel = qsel.any(0)
+    pair_rows = float((qsel.to(torch.float64) @ rows_per).sum())
+    return int(sel.sum()), float(rows_per[sel].sum()), pair_rows
+
+
+def k1_bound(part_ids, qsel, valid, n_q, d, p_max, k_out):
+    """(bound seconds by bytes, by operations) of ivf_scan_topk (l2): the
+    selected partitions' valid rows (f32) and valid bytes, the probe list,
+    queries and selection mask read once, the k_out ids gathered and the
+    outputs written once; 2d flops per valid row of each selected pair plus
+    2d per valid row for ||v||^2."""
+    n = part_ids.shape[0]
+    parts, rows, pair_rows = scan_work(part_ids, qsel, valid, n_q)
+    b = (rows * 4 * d + parts * p_max + n * 4 + n_q * 4 * d
+         + (n_q * n if qsel is not None else 0) + n_q * k_out * (4 + 8))
+    o = 2.0 * d * (pair_rows + rows)
+    return b / HBM_BYTES_PER_S, o / F32_FLOPS
+
+
+def k2_bound(part_ids, qsel, valid, n_q, d, p_max, k_out):
+    """(bound seconds by bytes, by operations) of sq_scan_folded on the
+    norms route: the selected partitions' valid rows' codes and norms,
+    valid bytes, the probe list, the folded queries (int8 [2Q, d], alpha,
+    beta), lo/scale and the selection mask read once, outputs written once;
+    2 * 2d int8 operations per valid row of each selected pair (two
+    folded terms)."""
+    n = part_ids.shape[0]
+    parts, rows, pair_rows = scan_work(part_ids, qsel, valid, n_q)
+    b = (rows * (d + 4) + parts * p_max + n * 4 + n_q * (2 * d + 12)
+         + 2 * d * 4 + (n_q * n if qsel is not None else 0)
+         + n_q * k_out * 8)
+    o = 2.0 * (2 * d) * pair_rows
+    return b / HBM_BYTES_PER_S, o / INT8_OPS
+
+
+def check_kernels(idx, cases, batch, timed):
+    """idx: dict of device tensors (vectors, valid, ids, codes, lo, scale,
+    norms, centroids); cases: list of (label, queries, part_ids, qsel,
+    k_out); batch: [s, d] rows for kmeans_assign. Every check and timing
+    goes through the public wrappers the engine calls; each is held against
+    the plain version of its whole function on the same inputs. Returns
+    per-kernel summaries."""
+    import torch
+    from repro_torch.core import quantize
+    from repro_torch.core.types import QuantStats, f32_matmul
+    from repro_torch.kernels import ivf_scan, kmeans_assign, sq_scan
+
+    vec, valid, ids = idx["vectors"], idx["valid"], idx["ids"]
+    codes, norms = idx["codes"], idx["norms"]
+    lo, scale = idx["lo"], idx["scale"]
+    kp, p_max, d = vec.shape
+    v2_max = float(torch.sum(vec * vec, dim=-1).max())
+    stats = QuantStats(lo=lo, scale=scale)
+    res = {k: dict(max_abs_err=0.0, ids_equal=True) for k in KERNEL_META}
+
+    def note(name, err, ok):
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        res[name]["ids_equal"] = res[name]["ids_equal"] and ok
+
+    def sq_plain(q, part_ids, k_out, metric, qsel, keep, nrm):
+        """sq_scan_topk's whole function in plain PyTorch: the query fold,
+        then the plain scan, with the norms feeding the l2 score only."""
+        q_i8, alpha, beta = quantize.fold_queries(stats, q)
+        return sq_scan.sq_scan_plain(
+            q_i8, alpha, beta, lo, scale, codes, valid, None, part_ids,
+            k_out, metric, qsel, keep, nrm if metric == "l2" else None)
+
+    g = torch.Generator(device=vec.device).manual_seed(1)
+    keep = torch.rand(valid.shape, generator=g, device=vec.device) < 0.3
+    none_kept = torch.zeros_like(valid)
+    timing_case = cases[-1]
+    for label, q, part_ids, qsel, k_out in cases:
+        tol = topk_tol(q, v2_max)
+        for metric in ("l2", "ip") if label == timing_case[0] else ("l2",):
+            for kname, kmask in (("", None), (" keep", keep)):
+                ref = ivf_scan.ivf_scan_plain(q, vec, valid, ids, part_ids,
+                                              k_out, metric, qsel, kmask)
+                got = ivf_scan.ivf_scan_topk(q, vec, valid, ids, part_ids,
+                                             k_out, metric, qsel, kmask)
+                note("ivf_scan_topk", *compare(
+                    ref, got, tol, f"ivf_scan {label} {metric}{kname}"))
+        k_sq = min(4 * k_out, part_ids.shape[0] * p_max)
+        # ip with norms passed: the wrapper must drop them (l2 only)
+        for metric, nrm in (("l2", norms), ("l2", None), ("ip", norms)):
+            if label != timing_case[0] and (nrm is None or metric == "ip"):
+                continue
+            ref = sq_plain(q, part_ids, k_sq, metric, qsel, None, nrm)
+            got = sq_scan.sq_scan_topk(q, codes, lo, scale, valid, None,
+                                       part_ids, k_sq, metric, qsel, None,
+                                       nrm)
+            note("sq_scan_topk", *compare(
+                ref, got, tol, f"sq_scan {label} {metric} "
+                f"{'norms' if nrm is not None else 'decode'}"))
+
+    # edge cases: every row masked, and k_out above the qualifying rows
+    label, q, part_ids, qsel, k_out = cases[0]
+    tol = topk_tol(q, v2_max)
+    few = keep & (torch.rand(valid.shape, generator=g, device=vec.device)
+                  < 0.02)
+    for kname, kmask in (("all-masked", none_kept), ("k>rows", few)):
+        kk = min(part_ids.shape[0] * p_max, 400)
+        ref = ivf_scan.ivf_scan_plain(q, vec, valid, ids, part_ids, kk,
+                                      "l2", qsel, kmask)
+        got = ivf_scan.ivf_scan_topk(q, vec, valid, ids, part_ids, kk, "l2",
+                                     qsel, kmask)
+        note("ivf_scan_topk", *compare(ref, got, tol, f"ivf_scan {kname}"))
+        ref = sq_plain(q, part_ids, kk, "l2", qsel, kmask, norms)
+        got = sq_scan.sq_scan_topk(q, codes, lo, scale, valid, None,
+                                   part_ids, kk, "l2", qsel, kmask, norms)
+        note("sq_scan_topk", *compare(ref, got, tol, f"sq_scan {kname}"))
+
+    # kmeans_assign at the build's shape: unbalanced and balanced. The
+    # plain side forms the penalty itself: counts * (lambda * scale /
+    # target), lambda = bw, scale = 3, target = 100.
+    cents = idx["centroids"]
+    k = cents.shape[0]
+    counts = torch.rand((k,), generator=g, device=vec.device) * 200
+    for bw in (0.0, 1.0):
+        pen = counts * (bw * 3.0 / 100)
+        ref_a, ref_c = kmeans_assign.kmeans_assign_plain(batch, cents, pen)
+        got_a, got_c = kmeans_assign.kmeans_assign(
+            batch, cents, counts, balance_weight=bw, target_size=100,
+            scale=3.0)
+        torch.cuda.synchronize()
+        x2 = torch.sum(batch * batch, dim=-1)
+        ctol = 1e-5 * (x2 + float(torch.sum(cents * cents, -1).max()))
+        err = float((ref_c - got_c).abs().max())
+        # a different arg-min is fine only where the two centroids' exact
+        # (float64) costs tie within the tolerance
+        x64, c64, p64 = batch.double(), cents.double(), pen.double()
+
+        def exact(a):
+            return ((x64 - c64[a.long()]) ** 2).sum(-1) + p64[a.long()]
+        ok = bool(((ref_c - got_c).abs() <= ctol).all()) and bool(
+            ((exact(ref_a) - exact(got_a)).abs() <= ctol).all())
+        log(f"  kmeans_assign bw={bw}: max_abs_err={err:.3e} ids_equal={ok} "
+            f"differing_args={int((ref_a != got_a).sum())}")
+        note("kmeans_assign", err, ok)
+
+    for name, r in res.items():
+        check(r["ids_equal"], f"{name} disagrees with its plain version")
+    if not timed:
+        return res
+
+    # -- kernel time at every main-path shape ---------------------------------
+    # K2 is timed through sq_scan_folded (the kernel's own inputs, beside
+    # the plain scan on the same folded queries); the fold is a few small
+    # torch ops outside the kernel.
+    for label, q, part_ids, qsel, k_out in cases:
+        q_i8, alpha, beta = quantize.fold_queries(stats, q)
+        n_q = q.shape[0]
+        k_sq = min(4 * k_out, part_ids.shape[0] * p_max)
+        t1 = cuda_ms(lambda: ivf_scan.ivf_scan_topk(
+            q, vec, valid, ids, part_ids, k_out, "l2", qsel, None))
+        t2 = cuda_ms(lambda: sq_scan.sq_scan_folded(
+            q_i8, alpha, beta, lo, scale, codes, valid, None, part_ids,
+            k_sq, "l2", qsel, None, norms))
+        b1 = 1e3 * max(k1_bound(part_ids, qsel, valid, n_q, d, p_max, k_out))
+        b2 = 1e3 * max(k2_bound(part_ids, qsel, valid, n_q, d, p_max, k_sq))
+        parts, rows, pair_rows = scan_work(part_ids, qsel, valid, n_q)
+        log(f"  time {label} (n={part_ids.shape[0]}, selected partitions "
+            f"{parts}, their valid rows {rows:.0f}, pair rows "
+            f"{pair_rows:.0f}): ivf_scan {t1:.4f} ms (k_out={k_out}, bound "
+            f"{b1:.4f}), sq_scan {t2:.4f} ms (k_out={k_sq}, bound {b2:.4f})")
+
+    # -- timing at the largest main-path shape ------------------------------
+    label, q, part_ids, qsel, k_out = timing_case
+    n = part_ids.shape[0]
+    n_q = q.shape[0]
+    pid_l = part_ids.long()
+
+    def lib_k1():
+        pv = vec[pid_l].reshape(-1, d)
+        s = torch.sum(pv * pv, -1)[None, :] - 2.0 * f32_matmul(q, pv.T)
+        ok = valid[pid_l].reshape(1, -1)
+        if qsel is not None:
+            ok = ok & qsel.repeat_interleave(p_max, dim=1)
+        s = s.masked_fill(~ok, float("inf"))
+        return torch.topk(s, k_out, dim=1, largest=False)
+
+    k1 = res["ivf_scan_topk"]
+    k1["ms"] = cuda_ms(lambda: ivf_scan.ivf_scan_topk(
+        q, vec, valid, ids, part_ids, k_out, "l2", qsel, None))
+    k1["plain_ms"] = cuda_ms(lambda: ivf_scan.ivf_scan_plain(
+        q, vec, valid, ids, part_ids, k_out, "l2", qsel, None), iters=3)
+    k1["library_ms"] = cuda_ms(lib_k1, iters=3)
+    b1, o1 = k1_bound(part_ids, qsel, valid, n_q, d, p_max, k_out)
+    k1["bound_ms"] = 1e3 * max(b1, o1)
+    k1["bound_by"] = "bytes" if b1 >= o1 else "operations"
+    k1["shape"] = f"Q={n_q} n={n} p_max={p_max} d={d} k_out={k_out}"
+
+    q_i8, alpha, beta = quantize.fold_queries(stats, q)
+    k_sq = min(4 * k_out, n * p_max)
+
+    def lib_k2():
+        pc = codes[pid_l].reshape(-1, d).to(torch.float32)
+        dots = f32_matmul(q_i8.to(torch.float32), pc.T)
+        s = norms[pid_l].reshape(1, -1) - 2.0 * (
+            alpha[:n_q, None] * dots[:n_q] + alpha[n_q:, None] * dots[n_q:]
+            + beta[:, None])
+        ok = valid[pid_l].reshape(1, -1)
+        if qsel is not None:
+            ok = ok & qsel.repeat_interleave(p_max, dim=1)
+        s = s.masked_fill(~ok, float("inf"))
+        return torch.topk(s, k_sq, dim=1, largest=False)
+
+    k2 = res["sq_scan_topk"]
+    k2["ms"] = cuda_ms(lambda: sq_scan.sq_scan_folded(
+        q_i8, alpha, beta, lo, scale, codes, valid, None, part_ids, k_sq,
+        "l2", qsel, None, norms))
+    k2["plain_ms"] = cuda_ms(lambda: sq_scan.sq_scan_plain(
+        q_i8, alpha, beta, lo, scale, codes, valid, None, part_ids, k_sq,
+        "l2", qsel, None, norms), iters=3)
+    k2["library_ms"] = cuda_ms(lib_k2, iters=3)
+    b2, o2 = k2_bound(part_ids, qsel, valid, n_q, d, p_max, k_sq)
+    k2["bound_ms"] = 1e3 * max(b2, o2)
+    k2["bound_by"] = "bytes" if b2 >= o2 else "operations"
+    k2["shape"] = f"Q={n_q} n={n} p_max={p_max} d={d} k_out={k_sq}"
+
+    # the build's final pass: balance_weight 0, so the penalty is zero
+    pen0 = torch.zeros((k,), dtype=torch.float32, device=vec.device)
+    s_rows = batch.shape[0]
+
+    def lib_k3():
+        dist = torch.sum(cents * cents, -1)[None, :] \
+            - 2.0 * f32_matmul(batch, cents.T)
+        return torch.argmin(dist, dim=1)
+
+    k3 = res["kmeans_assign"]
+    k3["ms"] = cuda_ms(lambda: kmeans_assign.kmeans_assign(batch, cents,
+                                                           pen0))
+    k3["plain_ms"] = cuda_ms(lambda: kmeans_assign.kmeans_assign_plain(
+        batch, cents, pen0))
+    k3["library_ms"] = cuda_ms(lib_k3)
+    b3 = ((s_rows + k) * d * 4 + k * 4 + s_rows * 8) / HBM_BYTES_PER_S
+    o3 = 2.0 * s_rows * k * d / F32_FLOPS
+    k3["bound_ms"] = 1e3 * max(b3, o3)
+    k3["bound_by"] = "bytes" if b3 >= o3 else "operations"
+    k3["shape"] = f"s={s_rows} k={k} d={d}"
+    for name, r in res.items():
+        log(f"  time {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return res
+
+
+def random_probe_cases(kp, device, gen, queries, n_probe=8):
+    """(label, queries, part_ids, qsel, k_out) cases with a random probe
+    union (quick mode has no clustering to probe)."""
+    import torch
+    cases = []
+    for n_q in (1, 512):
+        q = queries[:n_q]
+        parts = torch.stack([torch.randperm(kp, generator=gen,
+                                            device=device)[:n_probe]
+                             for _ in range(n_q)])
+        union = torch.unique(parts).to(torch.int32)
+        qsel = (parts[:, :, None] == union[None, None, :].long()).any(1)
+        cases.append((f"ann Q={n_q}", q, union, qsel, 100))
+    cases.insert(1, ("exact Q=8", queries[:8],
+                     torch.arange(kp, dtype=torch.int32, device=device),
+                     None, 100))
+    return cases
+
+
+def quick():
+    """Build, launch each kernel once at real widths against its plain
+    version, stop."""
+    import torch
+    from repro_torch.core import quantize
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    kp, p_max, d = 10000, 128, 128
+    vec = torch.randn((kp, p_max, d), generator=g, device=dev) * 4
+    valid = torch.rand((kp, p_max), generator=g, device=dev) < 0.9
+    ids = torch.arange(kp * p_max, dtype=torch.int32,
+                       device=dev).reshape(kp, p_max)
+    stats = quantize.train(vec.reshape(-1, d))
+    codes = quantize.encode(stats, vec)
+    idx = dict(vectors=vec, valid=valid, ids=ids, codes=codes, lo=stats.lo,
+               scale=stats.scale, norms=quantize.row_norms(stats, codes),
+               centroids=vec[:, 0, :].contiguous())
+    queries = vec[:512, 1, :] + 0.1 * torch.randn((512, d), generator=g,
+                                                  device=dev)
+    cases = random_probe_cases(kp, dev, g, queries)
+    batch = vec[:32, :, :].reshape(-1, d)[:4096].contiguous()
+    check_kernels(idx, cases, batch, timed=False)
+    log("quick: every kernel built, launched and agreed with its plain "
+        "version")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path at real size
+# ---------------------------------------------------------------------------
+
+
+class StepTimers:
+    """Wall time (with a device sync) of named library functions while
+    active, by wrapping them from outside: where build() and recover()
+    spend their time, without instrumenting the engine."""
+
+    def __init__(self, targets):
+        self.targets = targets           # (owner, attribute name) pairs
+        self.secs = {}
+        self._saved = []
+
+    def __enter__(self):
+        import torch
+        for owner, name in self.targets:
+            fn = getattr(owner, name)
+            label = f"{getattr(owner, '__name__', owner)}.{name}"
+
+            def timed(*a, _fn=fn, _label=label, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    self.secs[_label] = self.secs.get(_label, 0.0) \
+                        + time.perf_counter() - t0
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        return False
+
+    def report(self, phase):
+        for label, sec in self.secs.items():
+            log(f"  {phase} step {label}: {sec:.2f} s")
+
+
+def step_targets():
+    from repro_torch.core import ivf, kmeans
+    from repro_torch.storage.store import VectorStore
+    return [(VectorStore, "all_rows"), (VectorStore, "attributes_for"),
+            (VectorStore, "codes_for"), (VectorStore, "set_code_tier"),
+            (VectorStore, "set_partitions"), (ivf, "build_index"),
+            (kmeans.MiniBatchKMeans, "fit"),
+            (kmeans.MiniBatchKMeans, "assign"), (ivf, "pack_partitions"),
+            (ivf, "index_from_packed")]
+
+
+def _rm_db(path: Path):
+    for suffix in ("", "-wal", "-shm"):
+        p = Path(str(path) + suffix)
+        if p.exists():
+            p.unlink()
+
+
+def oracle_topk(Xg, x2, q, k):
+    """Brute-force ground truth on the card (torch.topk is the oracle
+    here, not the port): [Q, k] row ids by f32 distance."""
+    import torch
+    from repro_torch.core.types import f32_matmul
+    out = []
+    for s in range(0, q.shape[0], 64):
+        qb = q[s:s + 64]
+        d2 = x2[None, :] - 2.0 * f32_matmul(qb, Xg.T)
+        out.append(torch.topk(d2, k, dim=1, largest=False).indices)
+    return torch.cat(out)
+
+
+def true_d2(Xg, q, ids):
+    """float64 ||q - x||^2 for [Q, k] ids (-1 -> inf)."""
+    import torch
+    safe = ids.clamp(min=0).long()
+    diff = Xg[safe].double() - q.double()[:, None, :]
+    d2 = (diff * diff).sum(-1)
+    return torch.where(ids >= 0, d2, torch.full_like(d2, float("inf")))
+
+
+def recall(ids, gt):
+    import numpy as np
+    ids, gt = np.asarray(ids), np.asarray(gt)
+    hits = sum(len(set(a[a >= 0].tolist()) & set(b.tolist()))
+               for a, b in zip(ids, gt))
+    return hits / gt.size
+
+
+def exact_recall(Xg, q, ids, gt, v2_max):
+    """recall@k where a result outside the oracle's set counts as a match
+    when its true distance lies within the tolerance of the oracle's k-th
+    (a swap at the boundary between two tied scores). -> (recall, swaps)."""
+    import numpy as np
+    import torch
+    dg = true_d2(Xg, q, gt)                        # [Q, k]
+    dr = true_d2(Xg, q, ids)
+    kth = dg.max(dim=1).values
+    tol = torch.as_tensor(1e-5 * (torch.sum(q.double() ** 2, -1).cpu().numpy()
+                                  + v2_max), device=q.device)
+    hits = swaps = 0
+    ids_np, gt_np = ids.cpu().numpy(), gt.cpu().numpy()
+    ok = (dr <= (kth + tol)[:, None]).cpu().numpy()
+    for qi in range(ids_np.shape[0]):
+        g = set(gt_np[qi].tolist())
+        for j, a in enumerate(ids_np[qi]):
+            if a in g:
+                hits += 1
+            elif a >= 0 and ok[qi, j]:
+                hits += 1
+                swaps += 1
+    return hits / gt_np.size, swaps
+
+
+def timed_query(eng, q, spec, reps=2):
+    import torch
+    res = None
+    dt = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.query(q, spec)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+    return res, dt
+
+
+def main_path():
+    import numpy as np
+    import torch
+    from repro_torch.core.hybrid import Pred
+    from repro_torch.core.query import Q as QB
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.storage.engine import MicroNN
+
+    t0 = time.perf_counter()
+    ds = synthetic.make("sift", scale=1.0, with_gt=False, seed=0)
+    X, queries = ds.X, ds.Q
+    n, d = X.shape
+    rng = np.random.default_rng(0)
+    attrs = np.stack([rng.integers(0, 10, n).astype(np.float32),
+                      rng.random(n).astype(np.float32)], axis=1)
+    log(f"phase data: {time.perf_counter() - t0:.1f} s  X={X.shape} "
+        f"queries={queries.shape}")
+    WORK.mkdir(parents=True, exist_ok=True)
+    db = WORK / "sift1m.db"
+    _rm_db(db)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()          # counts cover the main path only
+    out = {}
+    t0 = time.perf_counter()
+    eng = MicroNN(dim=d, n_attr=2, path=str(db), quantize="int8",
+                  rerank_factor=4)
+    ids = np.arange(n, dtype=np.int64)
+    for s in range(0, n, 100_000):
+        eng.upsert(ids[s:s + 100_000], X[s:s + 100_000],
+                   attrs[s:s + 100_000])
+    out["ingest_s"] = time.perf_counter() - t0
+    log(f"phase ingest: {out['ingest_s']:.1f} s")
+    t0 = time.perf_counter()
+    with StepTimers(step_targets()) as tm:
+        eng.build()
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    idx = eng.index
+    log(f"phase build: {out['build_s']:.1f} s  k={idx.k} p_max={idx.p_max} "
+        f"live={idx.num_live()}")
+    tm.report("build")
+
+    # -- queries ------------------------------------------------------------
+    Xg = torch.from_numpy(X).cuda()
+    x2 = torch.sum(Xg * Xg, dim=1)
+    v2_max = float(x2.max())
+    qg = torch.from_numpy(queries).cuda()
+    gt = oracle_topk(Xg, x2, qg, 100)
+    rec = {}
+    lat = {}
+    for n_q in (1, 32, 512):
+        q = queries[:n_q]
+        n_q = len(q)
+        for tier, spec in (("int8", QB.knn(k=100, n_probe=8)),
+                           ("f32", QB.knn(k=100, n_probe=8).quantized(False))):
+            rs, ms = timed_query(eng, q, spec)
+            ids_np, sc = rs.to_numpy()
+            check(ids_np.shape == (n_q, 100), f"{tier} result shape")
+            check(np.isfinite(sc[ids_np >= 0]).all(), f"{tier} scores")
+            lat[f"{tier}_Q{n_q}_ms"] = ms
+            if n_q == len(queries):
+                rec[tier] = recall(ids_np, gt.cpu().numpy())
+    log(f"recall@100 n_probe=8 Q={len(queries)}: int8(rf=4)={rec['int8']:.4f} "
+        f"f32={rec['f32']:.4f}")
+    check(abs(rec["int8"] - rec["f32"]) <= 0.01,
+          "int8 recall is not within 0.01 of f32")
+    n_ex = 8
+    rs, ms = timed_query(eng, queries[:n_ex], QB.exact(k=100))
+    lat[f"exact_Q{n_ex}_ms"] = ms
+    ex_ids = torch.as_tensor(rs.to_numpy()[0]).cuda()
+    r_ex, swaps = exact_recall(Xg, qg[:n_ex], ex_ids, gt[:n_ex], v2_max)
+    log(f"exact recall@100 Q={n_ex}: {r_ex:.4f} (boundary swaps within "
+        f"tolerance: {swaps})")
+    check(r_ex == 1.0, "exact recall@100 is not 1.000")
+    spec_pf = QB.knn(k=100, n_probe=8).where(Pred(0, "==", 3)).postfilter()
+    rs, ms = timed_query(eng, queries[:32], spec_pf)
+    lat["postfilter_Q32_ms"] = ms
+    pf_ids = rs.to_numpy()[0]
+    got = pf_ids[pf_ids >= 0]
+    check(got.size > 0, "post-filter query returned nothing")
+    check((attrs[got, 0] == 3).all(), "post-filter result breaks predicate")
+    log(f"post-filter: {got.size} hits, all satisfy attr0 == 3")
+    for k_, v_ in lat.items():
+        log(f"latency {k_}: {v_:.3f}")
+
+    # -- writes: upserts visible at once, a delete gone at once --------------
+    new_ids = np.arange(n, n + 8, dtype=np.int64)
+    new_vecs = (rng.normal(size=(8, d)) * 4 + 40).astype(np.float32)
+    eng.upsert(new_ids, new_vecs, np.zeros((8, 2), np.float32))
+    rs = eng.query(new_vecs, QB.knn(k=10, n_probe=8))
+    check((rs.to_numpy()[0][:, 0] == new_ids).all(),
+          "an upserted row is not its own nearest neighbour")
+    victim = int(gt[0, 0])
+    eng.delete(np.array([victim]))
+    rs = eng.query(X[victim:victim + 1], QB.knn(k=10, n_probe=8))
+    check(victim not in set(rs.to_numpy()[0][0].tolist()),
+          "a deleted row is still returned")
+    log(f"writes: 8 upserts found at rank 0, deleted id {victim} gone")
+
+    # -- recover into a second engine ----------------------------------------
+    t0 = time.perf_counter()
+    eng2 = MicroNN(dim=d, n_attr=2, path=str(db), quantize="int8",
+                   rerank_factor=4)
+    with StepTimers(step_targets()) as tm:
+        eng2.recover()
+    out["recover_s"] = time.perf_counter() - t0
+    tm.report("recover")
+    spec = QB.knn(k=100, n_probe=8)
+    a = eng.query(queries[:32], spec)
+    b = eng2.query(queries[:32], spec)
+    from repro_torch.testing import compare_topk, score_tol
+    err, same, bad = compare_topk(a.to_numpy()[1], a.to_numpy()[0],
+                                  b.to_numpy()[1], b.to_numpy()[0],
+                                  score_tol(queries[:32], v2_max) * 2)
+    log(f"recover: {out['recover_s']:.1f} s, same ids={same} "
+        f"(max score diff {err:.3e})")
+    check(same, "the recovered engine answers differently")
+
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    out["launches"] = counts
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"launches on the main path: {counts}")
+    for name, c in counts.items():
+        check(c > 0, f"kernel {name} was not launched on the main path")
+    log(f"peak device memory: {out['peak_mem_bytes'] / 2**30:.2f} GiB  "
+        f"p_max={idx.p_max} k={idx.k}")
+    out.update(recall=rec, exact_recall=r_ex, swaps=swaps, latency_ms=lat,
+               p_max=idx.p_max, k=idx.k)
+    eng2.close()
+    return eng, queries, out
+
+
+def profile_queries(eng, queries):
+    """Device busy share of one query batch per tier, from a
+    torch.profiler trace: device kernel time over host wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.query import Q as QB
+    for tier, spec in (("int8", QB.knn(k=100, n_probe=8)),
+                       ("f32", QB.knn(k=100, n_probe=8).quantized(False))):
+        for n_q in (1, 512):
+            q = queries[:n_q]
+            eng.query(q, spec)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.query(q, spec).to_numpy()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            rows = prof.key_averages()
+
+            def dev_us(e):
+                return getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+            busy = sum(dev_us(e) for e in rows)
+            top = sorted(rows, key=dev_us, reverse=True)[:6]
+            if busy <= 0:
+                log(f"profile {tier} Q={n_q}: no device time in the trace "
+                    f"(busy share not measured)")
+                continue
+            log(f"profile {tier} Q={n_q}: wall {wall_us / 1e3:.3f} ms, "
+                f"device busy {busy / 1e3:.3f} ms, idle share "
+                f"{1 - busy / wall_us:.3f}; top: " + "; ".join(
+                    f"{e.key[:40]} {dev_us(e) / 1e3:.3f} ms" for e in top))
+
+
+def kernel_cases_from_index(eng, queries):
+    import torch
+    from repro_torch.core import executor
+    idx = eng.index
+    cases = []
+    for n_q in (1, 32, 512):
+        q = torch.from_numpy(queries[:n_q]).cuda()
+        upart, qsel = executor._probe_union(idx.centroids, idx.counts,
+                                            idx.config.metric, q, 8)
+        cases.append((f"ann Q={n_q}", q, upart, qsel, 100))
+    cases.insert(1, ("exact Q=8", torch.from_numpy(queries[:8]).cuda(),
+                     torch.arange(idx.k, dtype=torch.int32,
+                                  device=idx.device), None, 100))
+    return cases
+
+
+def run(args):
+    import torch
+    name, count, card = device_info()
+    t_all = time.perf_counter()
+    build_kernels()
+    if args.quick:
+        quick()
+        return
+    t0 = time.perf_counter()
+    eng, queries, out = main_path()
+    log(f"phase main: {time.perf_counter() - t0:.1f} s")
+    profile_queries(eng, queries)
+    t0 = time.perf_counter()
+    idx = eng.index
+    batch = idx.vectors[idx.valid][:4096].contiguous()
+    kidx = dict(vectors=idx.vectors, valid=idx.valid, ids=idx.ids,
+                codes=idx.codes, lo=idx.qstats.lo, scale=idx.qstats.scale,
+                norms=idx.code_norms, centroids=idx.centroids)
+    res = check_kernels(kidx, kernel_cases_from_index(eng, queries), batch,
+                        timed=True)
+    log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+    eng.close()
+    shutil.rmtree(WORK, ignore_errors=True)
+    kernels = []
+    for kname, r in res.items():
+        kernels.append(dict(
+            name=kname, **KERNEL_META[kname],
+            launches=out["launches"][kname],
+            max_abs_err=r["max_abs_err"], ids_equal=r["ids_equal"],
+            ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], shape=r["shape"]))
+    log(json.dumps({"main": {k: v for k, v in out.items()
+                             if k != "launches"}}))
+    log(f"phase total: {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="build and check each kernel once, then stop")
+    args = ap.parse_args()
+    if not (SRC / "repro_torch" / "__init__.py").exists():
+        print("FAIL: src/repro_torch not found beside chip_smoke.py",
+              flush=True)
+        return 1
+    sys.path.insert(0, str(SRC))
+    try:
+        run(args)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", flush=True)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,1 @@
+"""CUDA kernels (csrc/), their wrappers and plain PyTorch versions."""

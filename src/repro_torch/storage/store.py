@@ -1,0 +1,338 @@
+"""SQLite-backed durable vector store -- the paper's physical storage tier
+(§3.2), verbatim where it matters:
+
+  * WAL journal mode -> ACID upserts/deletes, single writer + concurrent
+    snapshot readers (paper §3.6);
+  * `vectors` is a WITHOUT ROWID table with PRIMARY KEY
+    (partition_id, asset_id) -> a *clustered* index: rows are physically
+    ordered by partition id, so a partition scan is sequential I/O;
+  * centroids and attributes live in side tables (paper Fig. 2);
+  * the delta-store is partition id -1 (the paper's "reserved partition
+    identifier");
+  * index rebuilds write a new *generation* and swap atomically -- readers
+    keep a consistent view during maintenance (paper: "index rebuilds ...
+    concurrently with transactionally consistent reads").
+
+A copy of repro.storage.store with the same schema byte for byte, so a
+database file written by either package opens in the other. The paged
+mode's readers (batched partition scans, per-asset vector and partition
+lookups) are left out with paged mode itself. This layer runs on the host:
+the durable home of the index and the source of device uploads.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import sqlite3
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+# SQLite bound-parameter ceiling (999 before 3.32); chunk IN (...) queries.
+_PARAM_CHUNK = 500
+
+
+class VectorStore:
+    def __init__(self, path: str = ":memory:", dim: int = 128,
+                 n_attr: int = 0):
+        self.path = path
+        self.dim = dim
+        self.n_attr = n_attr
+        # autocommit connection: transaction boundaries are owned by
+        # transaction() below, which NESTS -- a write session wraps many
+        # store calls in one outer BEGIN...COMMIT (paper §3.6's batched
+        # single-writer commit), while standalone calls still get their
+        # own transaction. check_same_thread=False lets the background
+        # maintenance scheduler and the pager's locked fault path use the
+        # connection from worker threads; callers must serialise access
+        # (PartitionCache holds an RLock around every store call, and the
+        # engine's write path is single-writer by contract).
+        self.db = sqlite3.connect(path, isolation_level=None,
+                                  check_same_thread=False)
+        self.db.execute("PRAGMA journal_mode=WAL")
+        self.db.execute("PRAGMA synchronous=NORMAL")
+        self._txn_depth = 0
+        self._create()
+        # Snapshot read connection (file-backed stores only): attribute,
+        # code and centroid reads go through a second connection, so WAL
+        # shows them committed states only, never another thread's open
+        # write transaction. An in-memory database is private to its
+        # connection, so `:memory:` stores keep one connection.
+        self._rdb: Optional[sqlite3.Connection] = None
+        if path != ":memory:":
+            self._rdb = sqlite3.connect(path, isolation_level=None,
+                                        check_same_thread=False)
+
+    @property
+    def read_db(self) -> sqlite3.Connection:
+        """Connection for query-path reads: the WAL snapshot connection
+        when available, else the write connection."""
+        return self._rdb if self._rdb is not None else self.db
+
+    @contextlib.contextmanager
+    def transaction(self):
+        """Nestable transaction scope: only the outermost level runs
+        BEGIN/COMMIT (ROLLBACK on any exception), so engine-level batch
+        operations -- MicroNN.session() commits above all -- can compose
+        store primitives into one atomic durable write."""
+        if self._txn_depth == 0:
+            self.db.execute("BEGIN IMMEDIATE")
+        self._txn_depth += 1
+        try:
+            yield
+        except BaseException:
+            self._txn_depth -= 1
+            if self._txn_depth == 0:
+                self.db.execute("ROLLBACK")
+            raise
+        else:
+            self._txn_depth -= 1
+            if self._txn_depth == 0:
+                try:
+                    self.db.execute("COMMIT")
+                except BaseException:
+                    # a failed COMMIT (disk full, ...) leaves the SQLite
+                    # transaction open: roll it back so the connection is
+                    # not wedged for every later transaction() scope
+                    try:
+                        self.db.execute("ROLLBACK")
+                    except sqlite3.Error:
+                        pass
+                    raise
+
+    # -- schema -------------------------------------------------------------
+    def _create(self):
+        attr_cols = ", ".join(f"a{i} REAL DEFAULT 0" for i in range(self.n_attr))
+        attr_cols = (", " + attr_cols) if attr_cols else ""
+        with self.transaction():
+            self.db.execute(
+                "CREATE TABLE IF NOT EXISTS vectors ("
+                " partition_id INTEGER NOT NULL,"
+                " asset_id INTEGER NOT NULL,"
+                " vec BLOB NOT NULL,"
+                " PRIMARY KEY (partition_id, asset_id)) WITHOUT ROWID")
+            self.db.execute(
+                "CREATE UNIQUE INDEX IF NOT EXISTS vectors_by_asset"
+                " ON vectors(asset_id)")
+            self.db.execute(
+                "CREATE TABLE IF NOT EXISTS centroids ("
+                " generation INTEGER NOT NULL,"
+                " partition_id INTEGER NOT NULL,"
+                " vec BLOB NOT NULL, csize REAL DEFAULT 0,"
+                " PRIMARY KEY (generation, partition_id)) WITHOUT ROWID")
+            self.db.execute(
+                f"CREATE TABLE IF NOT EXISTS attributes ("
+                f" asset_id INTEGER PRIMARY KEY{attr_cols})")
+            # int8 SQ code tier (paper's low-memory resident scan): codes
+            # are durable alongside the float32 vectors so recover() can
+            # restore the quantized index without re-encoding; quantizer
+            # stats live in `meta` under "qstats".
+            self.db.execute(
+                "CREATE TABLE IF NOT EXISTS codes ("
+                " asset_id INTEGER PRIMARY KEY, code BLOB NOT NULL)")
+            self.db.execute(
+                "CREATE TABLE IF NOT EXISTS meta (k TEXT PRIMARY KEY, v TEXT)")
+            if self._meta("generation") is None:
+                self._set_meta("generation", "0")
+
+    def _meta(self, k: str) -> Optional[str]:
+        row = self.db.execute("SELECT v FROM meta WHERE k=?", (k,)).fetchone()
+        return row[0] if row else None
+
+    def _set_meta(self, k: str, v: str):
+        self.db.execute(
+            "INSERT INTO meta(k, v) VALUES (?, ?)"
+            " ON CONFLICT(k) DO UPDATE SET v=excluded.v", (k, v))
+
+    @property
+    def generation(self) -> int:
+        return int(self._meta("generation") or 0)
+
+    # -- writes (single writer; each call is one transaction) ---------------
+    def upsert(self, asset_ids: Sequence[int], vecs: np.ndarray,
+               attrs: Optional[np.ndarray] = None, partition_id: int = -1):
+        """Upsert into the given partition (-1 = delta-store)."""
+        vecs = np.ascontiguousarray(vecs, np.float32)
+        with self.transaction():
+            self.db.executemany(
+                "DELETE FROM vectors WHERE asset_id=?",
+                [(int(a),) for a in asset_ids])
+            self.db.executemany(
+                "INSERT INTO vectors(partition_id, asset_id, vec)"
+                " VALUES (?, ?, ?)",
+                [(partition_id, int(a), v.tobytes())
+                 for a, v in zip(asset_ids, vecs)])
+            if attrs is not None and self.n_attr:
+                cols = ", ".join(f"a{i}" for i in range(self.n_attr))
+                ph = ", ".join("?" * (self.n_attr + 1))
+                self.db.executemany(
+                    f"INSERT OR REPLACE INTO attributes(asset_id, {cols})"
+                    f" VALUES ({ph})",
+                    [(int(a), *map(float, row))
+                     for a, row in zip(asset_ids, attrs)])
+
+    def delete(self, asset_ids: Sequence[int]):
+        with self.transaction():
+            self.db.executemany("DELETE FROM vectors WHERE asset_id=?",
+                                [(int(a),) for a in asset_ids])
+            self.db.executemany("DELETE FROM attributes WHERE asset_id=?",
+                                [(int(a),) for a in asset_ids])
+            self.db.executemany("DELETE FROM codes WHERE asset_id=?",
+                                [(int(a),) for a in asset_ids])
+
+    def _gather_by_asset(self, cols: str, table: str,
+                         asset_ids: Sequence[int]):
+        """Shared scaffolding for every batched asset-id gather: dedup the
+        wanted ids, chunk the IN (...) under the bound-parameter limit,
+        and yield (row, output_index) -- duplicates in `asset_ids` map to
+        every requesting position."""
+        pos: dict = {}
+        for j, a in enumerate(asset_ids):
+            pos.setdefault(int(a), []).append(j)
+        want = list(pos)
+        for s in range(0, len(want), _PARAM_CHUNK):
+            chunk = want[s:s + _PARAM_CHUNK]
+            ph = ", ".join("?" * len(chunk))
+            for row in self.read_db.execute(
+                    f"SELECT asset_id, {cols} FROM {table}"
+                    f" WHERE asset_id IN ({ph})", chunk):
+                for j in pos[row[0]]:
+                    yield row, j
+
+    # -- quantized tier ------------------------------------------------------
+    def codes_for(self, asset_ids: Sequence[int]
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """([n, d] int8 codes, [n] found mask) for the given assets; the
+        caller decides how to fill rows with no durable code (the engine
+        re-encodes them from the float32 tier)."""
+        out = np.zeros((len(asset_ids), self.dim), np.int8)
+        found = np.zeros((len(asset_ids),), bool)
+        for (_, blob), j in self._gather_by_asset("code", "codes",
+                                                  asset_ids):
+            out[j] = np.frombuffer(blob, np.int8)
+            found[j] = True
+        return out, found
+
+    def set_code_tier(self, asset_ids: Sequence[int], codes: np.ndarray,
+                      lo: np.ndarray, scale: np.ndarray):
+        """Atomically persist codes + quantizer stats in one transaction:
+        a crash never leaves codes decodable with the wrong stats."""
+        self.set_code_tier_streaming(iter([(asset_ids, codes)]), lo, scale)
+
+    def set_code_tier_streaming(self, chunks, lo: np.ndarray,
+                                scale: np.ndarray):
+        """set_code_tier over a stream of (asset_ids, codes) chunks, all
+        inside ONE transaction -- the paged build encodes batch-by-batch
+        without losing the codes-consistent-with-stats crash guarantee."""
+        with self.transaction():
+            for asset_ids, codes in chunks:
+                codes = np.ascontiguousarray(codes, np.int8)
+                self.db.executemany(
+                    "INSERT OR REPLACE INTO codes(asset_id, code)"
+                    " VALUES (?, ?)",
+                    [(int(a), c.tobytes())
+                     for a, c in zip(asset_ids, codes)])
+            self._set_meta("qstats", json.dumps(
+                {"lo": [float(x) for x in lo],
+                 "scale": [float(x) for x in scale]}))
+
+    def qstats(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        raw = self._meta("qstats")
+        if raw is None:
+            return None
+        d = json.loads(raw)
+        return (np.asarray(d["lo"], np.float32),
+                np.asarray(d["scale"], np.float32))
+
+    # -- maintenance state ---------------------------------------------------
+    def set_maintenance_state(self, base_mean_size: float,
+                              drift: np.ndarray):
+        """Persist the monitor's maintenance signals (per-partition
+        accumulated centroid drift + the rebuild baseline mean size) so a
+        recovered index resumes maintenance where the crashed process left
+        off, instead of resetting drift to zero and mis-timing the next
+        local repair."""
+        with self.transaction():
+            self._set_meta("maintenance", json.dumps(
+                {"base_mean_size": float(base_mean_size),
+                 "drift": [float(x) for x in np.asarray(drift)]}))
+
+    def maintenance_state(self) -> Optional[Tuple[float, np.ndarray]]:
+        raw = self._meta("maintenance")
+        if raw is None:
+            return None
+        d = json.loads(raw)
+        return (float(d["base_mean_size"]),
+                np.asarray(d["drift"], np.float32))
+
+    def set_partitions(self, asset_ids: np.ndarray, partition_ids: np.ndarray,
+                       centroids: np.ndarray, csizes: np.ndarray):
+        """Atomically install a new clustering generation (paper: the
+        partition IDs in the vector table are updated after (re)clustering).
+        The clustered PK physically re-orders rows by partition."""
+        gen = self.generation + 1
+        with self.transaction():
+            rows = self.db.execute(
+                "SELECT asset_id, vec FROM vectors").fetchall()
+            by_id = {a: v for a, v in rows}
+            self.db.execute("DELETE FROM vectors")
+            self.db.executemany(
+                "INSERT INTO vectors(partition_id, asset_id, vec)"
+                " VALUES (?, ?, ?)",
+                [(int(p), int(a), by_id[int(a)])
+                 for a, p in zip(asset_ids, partition_ids)])
+            self.db.executemany(
+                "INSERT INTO centroids(generation, partition_id, vec, csize)"
+                " VALUES (?, ?, ?, ?)",
+                [(gen, i, np.ascontiguousarray(c, np.float32).tobytes(),
+                  float(s))
+                 for i, (c, s) in enumerate(zip(centroids, csizes))])
+            self.db.execute("DELETE FROM centroids WHERE generation < ?",
+                            (gen,))
+            self._set_meta("generation", str(gen))
+
+    def update_centroids(self, centroids: np.ndarray, csizes: np.ndarray):
+        gen = self.generation
+        with self.transaction():
+            self.db.executemany(
+                "INSERT OR REPLACE INTO centroids"
+                " (generation, partition_id, vec, csize) VALUES (?, ?, ?, ?)",
+                [(gen, i, np.ascontiguousarray(c, np.float32).tobytes(),
+                  float(s))
+                 for i, (c, s) in enumerate(zip(centroids, csizes))])
+
+    # -- reads (snapshot-consistent within one connection txn) --------------
+    def centroids(self) -> Tuple[np.ndarray, np.ndarray]:
+        rows = self.read_db.execute(
+            "SELECT vec, csize FROM centroids WHERE generation=?"
+            " ORDER BY partition_id", (self.generation,)).fetchall()
+        if not rows:
+            return np.zeros((0, self.dim), np.float32), np.zeros((0,))
+        return (np.stack([np.frombuffer(r[0], np.float32) for r in rows]),
+                np.array([r[1] for r in rows], np.float32))
+
+    def all_rows(self):
+        rows = self.db.execute(
+            "SELECT asset_id, partition_id, vec FROM vectors"
+            " ORDER BY partition_id, asset_id").fetchall()
+        ids = np.array([r[0] for r in rows], np.int64)
+        parts = np.array([r[1] for r in rows], np.int64)
+        vecs = np.stack([np.frombuffer(r[2], np.float32) for r in rows]) \
+            if rows else np.zeros((0, self.dim), np.float32)
+        return ids, parts, vecs
+
+    def attributes_for(self, asset_ids: np.ndarray) -> np.ndarray:
+        """Batched attribute gather: one IN (...) query per parameter
+        chunk instead of a fetchone round-trip per asset id."""
+        if not self.n_attr:
+            return np.zeros((len(asset_ids), 0), np.float32)
+        cols = ", ".join(f"a{i}" for i in range(self.n_attr))
+        out = np.zeros((len(asset_ids), self.n_attr), np.float32)
+        for row, j in self._gather_by_asset(cols, "attributes", asset_ids):
+            out[j] = row[1:]
+        return out
+
+    def close(self):
+        if self._rdb is not None:
+            self._rdb.close()
+        self.db.close()

@@ -21,3 +21,8 @@ def small_index():
     cfg = IVFConfig(dim=32, target_partition_size=50, minibatch_size=128,
                     kmeans_iters=40, delta_capacity=256)
     return ivf.build_index(X, cfg=cfg), X
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skipped where none is present)")

@@ -1,0 +1,231 @@
+"""Each CUDA kernel against its plain PyTorch version on the card, and the
+engine on the card against the same engine on the CPU.
+
+Marked `gpu`: every test takes the `cuda` fixture, which skips when no
+CUDA device is present (decided at run time, never at import, so every
+test worker collects the same tests). On a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_kernels_gpu.py
+
+Tolerance: as in tests/test_torch_kernels.py -- scores within 1e-5 *
+(||q||^2 + max ||v||^2), ids equal outside runs of tied scores. The int8
+scan's accumulators are exact, so its scores over the precomputed norms
+must match the plain version bit for bit.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import executor, ivf, quantize, query
+from repro_torch.core.hybrid import Pred, compile_filter
+from repro_torch.core.types import IVFConfig
+from repro_torch.kernels import ivf_scan, kmeans_assign, ops, sq_scan
+from repro_torch.storage.engine import MicroNN
+from repro_torch.testing import compare_topk, score_tol
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(dev, seed=0, kp=200, p_max=72, d=64, n_q=16, n_probe=6,
+            p_valid=0.9):
+    g = torch.Generator().manual_seed(seed)
+    vec = torch.randn((kp, p_max, d), generator=g) * 3
+    valid = torch.rand((kp, p_max), generator=g) < p_valid
+    ids = torch.arange(kp * p_max, dtype=torch.int32).reshape(kp, p_max)
+    attrs = torch.randint(0, 4, (kp, p_max, 2), generator=g).float()
+    q = vec[torch.randint(0, kp, (n_q,), generator=g), 0] \
+        + 0.1 * torch.randn((n_q, d), generator=g)
+    parts = torch.stack([torch.randperm(kp, generator=g)[:n_probe]
+                         for _ in range(n_q)])
+    union = torch.unique(parts).to(torch.int32)
+    qsel = (parts[:, :, None] == union[None, None, :].long()).any(1)
+    out = dict(vec=vec, valid=valid, ids=ids, attrs=attrs, q=q,
+               union=union, qsel=qsel)
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def _tol(x):
+    v2 = float(torch.sum(x["vec"] ** 2, -1).max())
+    return score_tol(x["q"].cpu().numpy(), v2)
+
+
+def _same(ref, got, tol):
+    torch.cuda.synchronize()
+    err, ok, bad = compare_topk(ref[0].cpu().numpy(), ref[1].cpu().numpy(),
+                                got[0].cpu().numpy(), got[1].cpu().numpy(),
+                                tol)
+    assert ok, f"{bad} rows differ (max err {err:.3e})"
+    return err
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("with_qsel", [False, True])
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_ivf_scan_kernel_matches_plain(cuda, metric, with_qsel, with_keep):
+    x = _inputs(cuda)
+    keep = compile_filter(Pred(0, ">=", 2))(x["attrs"]) if with_keep \
+        else None
+    qsel = x["qsel"] if with_qsel else None
+    args = (x["q"], x["vec"], x["valid"], x["ids"], x["union"], 50, metric,
+            qsel, keep)
+    before = ivf_scan.LAUNCHES
+    got = ivf_scan.ivf_scan_topk(*args[:6], metric=metric, qsel=qsel,
+                                 keep=keep)
+    assert ivf_scan.LAUNCHES == before + 1
+    _same(ivf_scan.ivf_scan_plain(*args), got, _tol(x))
+
+
+@pytest.mark.parametrize("p_valid", [0.0, 0.02])
+def test_ivf_scan_kernel_exhausted_buffer(cuda, p_valid):
+    # all rows masked / fewer rows than k_out: (MASKED, -1), no repeats
+    x = _inputs(cuda, seed=1, p_valid=p_valid)
+    args = (x["q"], x["vec"], x["valid"], x["ids"], x["union"], 300, "l2",
+            x["qsel"], None)
+    got = ivf_scan.ivf_scan_topk(*args[:6], qsel=x["qsel"])
+    _same(ivf_scan.ivf_scan_plain(*args), got, _tol(x))
+    ids = got[1].cpu().numpy()
+    for row in ids:
+        r = row[row >= 0]
+        assert len(set(r.tolist())) == len(r)
+
+
+def test_ivf_scan_kernel_wide_partitions_and_k(cuda):
+    # p_max above the 1024-row tile and k_out above the block size
+    x = _inputs(cuda, seed=2, kp=12, p_max=1500, d=36, n_q=5, n_probe=3)
+    args = (x["q"], x["vec"], x["valid"], x["ids"], x["union"], 700, "l2",
+            x["qsel"], None)
+    got = ivf_scan.ivf_scan_topk(*args[:6], qsel=x["qsel"])
+    _same(ivf_scan.ivf_scan_plain(*args), got, _tol(x))
+
+
+def test_scan_kernels_width_not_multiple_of_4(cuda):
+    # d % 4 != 0 takes the kernels' scalar load paths (no float4 / packed
+    # int8 words)
+    x = _inputs(cuda, seed=7, d=30)
+    args = (x["q"], x["vec"], x["valid"], x["ids"], x["union"], 60, "l2",
+            x["qsel"], None)
+    got = ivf_scan.ivf_scan_topk(*args[:6], qsel=x["qsel"])
+    _same(ivf_scan.ivf_scan_plain(*args), got, _tol(x))
+    st = quantize.train(x["vec"].reshape(-1, 30))
+    codes = quantize.encode(st, x["vec"])
+    q_i8, alpha, beta = quantize.fold_queries(st, x["q"])
+    for norms in (quantize.row_norms(st, codes), None):
+        sq = (q_i8, alpha, beta, st.lo, st.scale, codes, x["valid"], None,
+              x["union"], 90, "l2", x["qsel"], None, norms)
+        got = sq_scan.sq_scan_folded(*sq[:10], qsel=x["qsel"], norms=norms)
+        _same(sq_scan.sq_scan_plain(*sq), got, _tol(x))
+
+
+@pytest.mark.parametrize("metric,with_norms",
+                         [("l2", True), ("l2", False), ("ip", False)])
+def test_sq_scan_kernel_matches_plain(cuda, metric, with_norms):
+    x = _inputs(cuda, seed=3)
+    st = quantize.train(x["vec"].reshape(-1, x["vec"].shape[-1]))
+    codes = quantize.encode(st, x["vec"])
+    norms = quantize.row_norms(st, codes) if with_norms else None
+    q_i8, alpha, beta = quantize.fold_queries(st, x["q"])
+    args = (q_i8, alpha, beta, st.lo, st.scale, codes, x["valid"], None,
+            x["union"], 120, metric, x["qsel"], None, norms)
+    before = sq_scan.LAUNCHES
+    got = sq_scan.sq_scan_folded(*args[:10], metric=metric, qsel=x["qsel"],
+                                 norms=norms)
+    assert sq_scan.LAUNCHES == before + 1
+    err = _same(sq_scan.sq_scan_plain(*args), got, _tol(x))
+    if with_norms:
+        assert err == 0.0      # exact accumulators, same epilogue order
+
+
+@pytest.mark.parametrize("balance_weight", [0.0, 1.0])
+def test_kmeans_assign_kernel_matches_plain(cuda, balance_weight):
+    g = torch.Generator().manual_seed(4)
+    cents = (torch.randn((1000, 40), generator=g) * 3).to(cuda)  # ragged
+    batch = (cents[torch.randint(0, 1000, (3000,), generator=g).to(cuda)]
+             + torch.randn((3000, 40), generator=g).to(cuda))
+    counts = (torch.rand((1000,), generator=g) * 80).to(cuda)
+    pen = kmeans_assign.balance_penalty(counts, balance_weight, 50, 2.0)
+    a_r, c_r = kmeans_assign.kmeans_assign_plain(batch, cents, pen)
+    a_k, c_k = kmeans_assign.kmeans_assign(batch, cents, counts,
+                                           balance_weight=balance_weight,
+                                           target_size=50, scale=2.0)
+    tol = 1e-5 * (torch.sum(batch ** 2, -1)
+                  + float(torch.sum(cents ** 2, -1).max()))
+    assert bool(((c_r - c_k).abs() <= tol).all())
+    # a different arg-min only where the two centroids' exact costs tie
+    x64, c64 = batch.double(), cents.double()
+
+    def exact(a):
+        c = c64[a.long()]
+        return ((x64 - c) ** 2).sum(-1) + pen.double()[a.long()]
+    assert bool(((exact(a_r) - exact(a_k)).abs() <= tol).all())
+    assert float((a_r == a_k).float().mean()) >= 0.999
+
+
+def _to(index, dev):
+    """A copy of an IVFIndex with every tensor on `dev`."""
+    def mv(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dev)
+        if dataclasses.is_dataclass(v) and not isinstance(v, IVFConfig):
+            return dataclasses.replace(v, **{f.name: mv(getattr(v, f.name))
+                                             for f in dataclasses.fields(v)})
+        return v
+    return mv(index)
+
+
+@pytest.mark.parametrize("tier", ["none", "int8"])
+def test_executor_on_cuda_matches_cpu(cuda, tier):
+    rng = np.random.default_rng(5)
+    centers = rng.normal(size=(30, 32)).astype(np.float32) * 5
+    X = (centers[rng.integers(0, 30, 4000)]
+         + rng.normal(size=(4000, 32))).astype(np.float32)
+    attrs = rng.integers(0, 4, (4000, 2)).astype(np.float32)
+    cfg = IVFConfig(dim=32, target_partition_size=50, kmeans_iters=10,
+                    quantize=tier)
+    cpu_idx = ivf.build_index(X, attrs=attrs, cfg=cfg, device="cpu")
+    gpu_idx = _to(cpu_idx, cuda)
+    q = X[rng.integers(0, 4000, 24)] + 0.2 * rng.normal(size=(24, 32))
+    tol = score_tol(q, float((X * X).sum(1).max()))
+    for spec in (query.Q.knn(k=20, n_probe=6), query.Q.exact(k=20),
+                 query.Q.knn(k=20, n_probe=6).where(Pred(0, "==", 1))
+                 .postfilter()):
+        a = executor.run(cpu_idx, q, spec)
+        b = executor.run(gpu_idx, q, spec)
+        err, ok, bad = compare_topk(a.to_numpy()[1], a.to_numpy()[0],
+                                    b.to_numpy()[1], b.to_numpy()[0], tol)
+        assert ok, (spec, bad, err)
+
+
+def test_engine_end_to_end_on_cuda(cuda, tmp_path):
+    rng = np.random.default_rng(6)
+    X = (rng.normal(size=(3000, 32)) * 4).astype(np.float32)
+    ops.reset_launch_counts()
+    eng = MicroNN(dim=32, n_attr=1, path=str(tmp_path / "e.db"),
+                  quantize="int8",
+                  config=IVFConfig(dim=32, target_partition_size=40,
+                                   kmeans_iters=8))
+    assert eng.device.type == "cuda"
+    eng.upsert(np.arange(3000), X, np.zeros((3000, 1), np.float32))
+    eng.build()
+    rs = eng.query(X[:10], query.Q.knn(k=5, n_probe=8))
+    assert (rs.to_numpy()[0][:, 0] == np.arange(10)).all()
+    eng.query(X[:4], query.Q.knn(k=5).quantized(False))
+    counts = ops.launch_counts()
+    assert all(c > 0 for c in counts.values()), counts
+    eng2 = MicroNN(dim=32, n_attr=1, path=str(tmp_path / "e.db"),
+                   quantize="int8",
+                   config=IVFConfig(dim=32, target_partition_size=40,
+                                    kmeans_iters=8))
+    eng2.recover()
+    rs2 = eng2.query(X[:10], query.Q.knn(k=5, n_probe=8))
+    np.testing.assert_array_equal(rs.to_numpy()[0], rs2.to_numpy()[0])
+    eng.close()
+    eng2.close()

@@ -20,7 +20,8 @@ Phases (any failure exits non-zero and prints no result line):
   4. kernels  -- each kernel against its plain PyTorch version on the card
                  at the main path's shapes plus edge cases, then timed with
                  CUDA events beside the plain version and a PyTorch
-                 yardstick (library_ms), with its roofline bound.
+                 yardstick (library_ms), with its roofline bound; K2 and K3
+                 also as their kernels' device time in a profiler trace.
   5. result   -- one JSON line of kernels, the card's name and power limit,
                  and the contract line {"ok": true, "device": {...}}.
 """
@@ -54,6 +55,9 @@ KERNEL_META = {
         route="cuda", source="src/repro_torch/kernels/csrc/kmeans_assign.cu",
         replaces="src/repro/kernels/kmeans_assign.py:56"),
 }
+# each kernel's CUDA kernels, by name, for its device time in a trace
+K2_KERNELS = ("sq_pair_list", "sq_scan_pass1", "topk_merge_pass2")
+K3_KERNELS = ("row_sqnorms", "kmeans_assign_tiles", "kmeans_assign_groups")
 
 
 class SmokeFailure(Exception):
@@ -121,6 +125,29 @@ def cuda_ms(fn, iters=10):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def kernel_device_ms(fn, kernels, iters=10):
+    """Mean device time per fn() of the CUDA kernels whose names contain
+    one of `kernels`, from a torch.profiler trace: kernel time without the
+    wrapper's host work. None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if any(k in e.key for k in kernels))
+    return us / iters / 1e3 if us > 0 else None
+
+
+def fmt_ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def topk_tol(queries, v2_max):
@@ -301,7 +328,9 @@ def check_kernels(idx, cases, batch, timed):
     # -- kernel time at every main-path shape ---------------------------------
     # K2 is timed through sq_scan_folded (the kernel's own inputs, beside
     # the plain scan on the same folded queries); the fold is a few small
-    # torch ops outside the kernel.
+    # torch ops outside the kernel. Beside it, the device time of K2's own
+    # kernels in a profiler trace: the gap is the wrapper's host work
+    # (checks, allocations, ctypes), not kernel time.
     for label, q, part_ids, qsel, k_out in cases:
         q_i8, alpha, beta = quantize.fold_queries(stats, q)
         n_q = q.shape[0]
@@ -311,13 +340,19 @@ def check_kernels(idx, cases, batch, timed):
         t2 = cuda_ms(lambda: sq_scan.sq_scan_folded(
             q_i8, alpha, beta, lo, scale, codes, valid, None, part_ids,
             k_sq, "l2", qsel, None, norms))
+        t2_dev = kernel_device_ms(lambda: sq_scan.sq_scan_folded(
+            q_i8, alpha, beta, lo, scale, codes, valid, None, part_ids,
+            k_sq, "l2", qsel, None, norms), K2_KERNELS)
         b1 = 1e3 * max(k1_bound(part_ids, qsel, valid, n_q, d, p_max, k_out))
         b2 = 1e3 * max(k2_bound(part_ids, qsel, valid, n_q, d, p_max, k_sq))
         parts, rows, pair_rows = scan_work(part_ids, qsel, valid, n_q)
         log(f"  time {label} (n={part_ids.shape[0]}, selected partitions "
             f"{parts}, their valid rows {rows:.0f}, pair rows "
             f"{pair_rows:.0f}): ivf_scan {t1:.4f} ms (k_out={k_out}, bound "
-            f"{b1:.4f}), sq_scan {t2:.4f} ms (k_out={k_sq}, bound {b2:.4f})")
+            f"{b1:.4f}), sq_scan {t2:.4f} ms, its kernels' device time "
+            f"{fmt_ms(t2_dev)} (k_out={k_sq}, bound {b2:.4f})")
+        if label == timing_case[0]:
+            res["sq_scan_topk"]["device_ms"] = t2_dev
 
     # -- timing at the largest main-path shape ------------------------------
     label, q, part_ids, qsel, k_out = timing_case
@@ -382,14 +417,30 @@ def check_kernels(idx, cases, batch, timed):
             - 2.0 * f32_matmul(batch, cents.T)
         return torch.argmin(dist, dim=1)
 
+    def k3_bound(rows):
+        b = ((rows + k) * d * 4 + k * 4 + rows * 8) / HBM_BYTES_PER_S
+        o = 2.0 * rows * k * d / F32_FLOPS
+        return b, o
+
+    # the build's last batch of 1M rows is ragged: 1,000,000 % 4096 = 576.
+    # Each shape also as K3's kernels' device time in a profiler trace.
+    for rows in (576, s_rows):
+        xb = batch[:rows].contiguous()
+        t_w = cuda_ms(lambda: kmeans_assign.kmeans_assign(xb, cents, pen0))
+        t_dev = kernel_device_ms(
+            lambda: kmeans_assign.kmeans_assign(xb, cents, pen0), K3_KERNELS)
+        log(f"  time kmeans_assign [s={rows} k={k} d={d}]: kernel {t_w:.4f}"
+            f" ms, its kernels' device time {fmt_ms(t_dev)}, bound "
+            f"{1e3 * max(k3_bound(rows)):.4f} ms")
+        if rows == s_rows:
+            res["kmeans_assign"]["device_ms"] = t_dev
     k3 = res["kmeans_assign"]
     k3["ms"] = cuda_ms(lambda: kmeans_assign.kmeans_assign(batch, cents,
                                                            pen0))
     k3["plain_ms"] = cuda_ms(lambda: kmeans_assign.kmeans_assign_plain(
         batch, cents, pen0))
     k3["library_ms"] = cuda_ms(lib_k3)
-    b3 = ((s_rows + k) * d * 4 + k * 4 + s_rows * 8) / HBM_BYTES_PER_S
-    o3 = 2.0 * s_rows * k * d / F32_FLOPS
+    b3, o3 = k3_bound(s_rows)
     k3["bound_ms"] = 1e3 * max(b3, o3)
     k3["bound_by"] = "bytes" if b3 >= o3 else "operations"
     k3["shape"] = f"s={s_rows} k={k} d={d}"
@@ -791,7 +842,8 @@ def run(args):
             max_abs_err=r["max_abs_err"], ids_equal=r["ids_equal"],
             ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=r["shape"]))
+            library_ms=r["library_ms"], shape=r["shape"],
+            **({"device_ms": r["device_ms"]} if "device_ms" in r else {})))
     log(json.dumps({"main": {k: v for k, v in out.items()
                              if k != "launches"}}))
     log(f"phase total: {time.perf_counter() - t_all:.1f} s")

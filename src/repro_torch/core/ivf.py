@@ -16,7 +16,7 @@ import torch
 
 from . import kmeans, quantize
 from .types import (DeltaStore, INVALID_ID, IVFConfig, IVFIndex, QuantStats,
-                    normalize_if_cosine)
+                    normalize_if_cosine, resolve_device)
 
 
 def pack_partitions(
@@ -101,13 +101,14 @@ def build_index(X: np.ndarray, ids: Optional[np.ndarray] = None,
                 attrs: Optional[np.ndarray] = None,
                 cfg: Optional[IVFConfig] = None, k: Optional[int] = None,
                 qstats: Optional[QuantStats] = None,
-                device="cpu") -> IVFIndex:
+                device=None) -> IVFIndex:
     """Full index build: Alg. 1 clustering + partition-major packing.
 
     With cfg.quantize == "int8" the build also trains the scalar quantizer
-    (unless stats are passed) and encodes every row into the code tier."""
+    (unless stats are passed) and encodes every row into the code tier.
+    `device` None means the card (types.resolve_device)."""
     cfg = cfg or IVFConfig(dim=X.shape[1])
-    dev = torch.device(device)
+    dev = resolve_device(device)
     Xd = normalize_if_cosine(
         torch.as_tensor(np.asarray(X, np.float32), device=dev), cfg.metric)
     n = Xd.shape[0]

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from .types import IVFConfig, f32_matmul, normalize_if_cosine, pairwise_scores
+from .types import (IVFConfig, f32_matmul, normalize_if_cosine,
+                    pairwise_scores, resolve_device)
 
 
 def assign_minibatch(centroids: torch.Tensor, counts: torch.Tensor,
@@ -80,10 +81,10 @@ class MiniBatchKMeans:
     iterator, so the full dataset need not sit on the device at once."""
 
     def __init__(self, cfg: IVFConfig, k: Optional[int] = None,
-                 device="cpu"):
+                 device=None):
         self.cfg = cfg
         self.k = k
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.centroids: Optional[np.ndarray] = None
         self.counts: Optional[np.ndarray] = None
 
@@ -133,7 +134,7 @@ class MiniBatchKMeans:
 
 
 def fit_in_memory(X: np.ndarray, cfg: IVFConfig, k: Optional[int] = None,
-                  device="cpu"):
+                  device=None):
     """Fit + assign over an in-memory array -> (centroids, counts, assign)."""
     km = MiniBatchKMeans(cfg, k=k, device=device)
 

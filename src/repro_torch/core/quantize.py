@@ -14,7 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .types import QuantStats, f32_matmul
+from .types import QuantStats, f32_matmul, resolve_device
 
 # Number of representable levels: codes span [-128, 127] <-> [0, 255].
 LEVELS = 255
@@ -98,7 +98,9 @@ def stats_to_arrays(stats: QuantStats):
 
 
 def stats_from_arrays(lo: np.ndarray, scale: np.ndarray,
-                      device="cpu") -> QuantStats:
+                      device=None) -> QuantStats:
+    """Host arrays -> QuantStats on `device` (None: the card)."""
+    device = resolve_device(device)
     return QuantStats(
         lo=torch.as_tensor(np.asarray(lo, np.float32), device=device),
         scale=torch.as_tensor(np.asarray(scale, np.float32), device=device))

@@ -74,7 +74,8 @@ class DeltaStore:
 
     @staticmethod
     def empty(cap: int, dim: int, n_attr: int, quantized: bool = False,
-              device="cpu") -> "DeltaStore":
+              device=None) -> "DeltaStore":
+        device = resolve_device(device)
         return DeltaStore(
             vectors=torch.zeros((cap, dim), dtype=torch.float32,
                                 device=device),

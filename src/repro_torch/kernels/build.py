@@ -36,9 +36,9 @@ SIGNATURES = {
     "ivf_scan": ("ivf_scan_launch",
                  [_P] * 7 + [_I] * 10 + [_P] * 5),
     "sq_scan": ("sq_scan_launch",
-                [_P] * 12 + [_I] * 10 + [_P] * 5),
+                [_P] * 12 + [_I] * 7 + [_P] * 7),
     "kmeans_assign": ("kmeans_assign_launch",
-                      [_P] * 3 + [_I] * 5 + [_P] * 5),
+                      [_P] * 3 + [_I] * 5 + [_P] * 6),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -6,7 +6,7 @@ from typing import Optional, Tuple
 
 import torch
 
-THREADS = 256          # threads per block of both scan kernels
+THREADS = 256          # threads per block of ivf_scan.cu
 MAX_TILE = 1024        # candidate rows sorted per merge step
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may opt into
 
@@ -72,3 +72,18 @@ def scan_plan(n_q: int, n: int, p_max: int, k_out: int, d: int,
         raise ValueError("probe list too long: n * p_max must stay below "
                          "2^31 positions")
     return n_chunks, chunk, tile
+
+
+def sq_scan_plan(n_q: int, n: int, device: torch.device) -> int:
+    """n_chunks for sq_scan.cu: each query's selected pairs are shared out
+    over n_chunks blocks, about as many (query, chunk) blocks as the card
+    holds at once (two 256-thread blocks per SM at pass 1's ~120
+    registers): more chunks only lengthen pass 2's serial merge of each
+    query's lists. The shared memory a k_out needs is checked by the
+    launch itself (sq_scan.cu), which reports an oversize request as its
+    error."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n_chunks = max(1, min(n, (2 * sms) // n_q))
+    if n_q > 65535:
+        raise ValueError("a scan takes at most 65535 queries per call")
+    return n_chunks

@@ -16,18 +16,37 @@
 // What bounds it on the H100: operations. One call at the build's shape
 // (4096 rows x ~10,000 centroids x 128) is ~10.5 GFLOP over ~7 MB, about
 // 1,500 flop/byte; the float32 FMA rate (67 TFLOP/s outside the tensor
-// cores) is the limit, not the 3.35 TB/s memory.
+// cores) is the limit, not the 3.35 TB/s memory. So the design is an
+// SGEMM-class main loop with a fused arg-min epilogue:
 //
-// What the design does about it: a block owns 64 rows and one contiguous
-// group of centroids, which it streams through shared memory in 64-wide
-// tiles and 16-deep chunks. Each thread keeps a 4 x 4 register tile of
-// dot products (4 rows x 4 centroids), so one pair of float4 shared-memory
-// reads feeds 16 FMAs. The centroid range is split across blockIdx.y so a
-// 4096-row call still fills all 132 SMs; a second small pass reduces the
-// groups' (best, arg) per row. Ragged edges (rows, centroids, depth) are
-// handled by bounds and zero fill, not by the TPU's 1e18 padding. Each
-// dot product is one sequential IEEE float32 FMA chain over d (no TF32).
-// Tensor cores (3xTF32 or wgmma) are a later PR's work.
+// - A block owns 128 rows and keeps their [128, d] tile resident in shared
+//   memory for its whole sweep over one contiguous group of centroids (the
+//   rows never change, so they are read from device memory once per
+//   block). Where that tile does not fit (d above 256, e.g. GIST-960) the
+//   rows stream through the ring beside the centroids instead, one 64-deep
+//   chunk at a time.
+// - Centroid tiles of 128 stream through a double-buffered ring of 64-deep
+//   chunks filled by 16-byte cp.async copies (4-byte copies when
+//   d % 4 != 0), so the loads of chunk t+1 overlap the FMAs of chunk t;
+//   one barrier per chunk. (Measured on the H100: 64 x 2 stages beat
+//   32 x 3 and 16 x 4; two blocks per SM at 128 registers, and an
+//   outer-product ordering of the FMAs, were both slower.)
+// - 256 threads, each with an 8 x 8 register tile (rows ty + 16 i,
+//   centroids tx + 16 j). Shared tiles are row-major with a 4-float pad, so
+//   a thread reads 4 depths of a row or centroid as one float4: 16 LDS.128
+//   per 256 FMAs, the row reads broadcast within a warp and the centroid
+//   reads conflict-free.
+// - ||x||^2 and ||c||^2 are computed once per call by a small pre-pass
+//   (row_sqnorms), not per block.
+// - The centroid range is split across blockIdx.y so a 4096-row call still
+//   fills all 132 SMs (one block per SM); a second small pass reduces the
+//   groups' (best, arg) per row.
+//
+// Numerics: each dot product and each squared norm is one sequential IEEE
+// float32 fmaf chain over d in increasing order (zero-filled padding adds
+// exactly 0), whatever the tiling, so results do not depend on the block
+// shape or the group split. No TF32: it would move costs by ~1e-3 relative
+// and arg-mins with them.
 
 #include <cstdint>
 #include <cfloat>
@@ -35,108 +54,229 @@
 
 namespace {
 
-constexpr int BR = 64;          // rows per block
-constexpr int BC = 64;          // centroids per tile
-constexpr int DK = 16;          // depth of one shared-memory chunk
-constexpr int TX = 16;          // threads across centroids
-constexpr int TY = 16;          // threads across rows
-constexpr int TR = BR / TY;     // rows per thread (4)
-constexpr int TC = BC / TX;     // centroids per thread (4)
-constexpr int LD = BR + 4;      // padded smem row: float4-aligned, few conflicts
-constexpr int THREADS = TX * TY;
+constexpr int BR = 128;          // rows per block
+constexpr int BC = 128;          // centroids per tile
+constexpr int DK = 64;           // depth of one ring chunk
+constexpr int LDK = DK + 4;      // padded chunk row (floats)
+constexpr int NST = 2;           // ring stages
+constexpr int THREADS = 256;     // 16 x 16 threads, 8 x 8 results each
+constexpr int CHUNK_FLOATS = BC * LDK;
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy rows [r0, r0 + 128) x depths [e0, e0 + width) of src [n_rows, d]
+// into dst [128][ld], zero-filling rows >= r_end and depths >= d.
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* src, int r0,
+                                          int r_end, int d, int e0,
+                                          int width, bool vec4) {
+  if (vec4) {
+    const int segs = width >> 2;
+    for (int i = threadIdx.x; i < BR * segs; i += THREADS) {
+      const int r = i / segs, e = e0 + 4 * (i % segs);
+      const bool ok = (r0 + r < r_end) && (e < d);
+      cp_async16(dst + r * ld + (e - e0),
+                 ok ? src + (size_t)(r0 + r) * d + e : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < BR * width; i += THREADS) {
+      const int r = i / width, e = e0 + i % width;
+      const bool ok = (r0 + r < r_end) && (e < d);
+      cp_async4(dst + r * ld + (e - e0),
+                ok ? src + (size_t)(r0 + r) * d + e : src, ok);
+    }
+  }
+}
+
+constexpr int NORM_WARPS = 2;   // warps per block of row_sqnorms
+constexpr int NORM_DK = 128;    // depths a warp stages at once
+
+// ||row||^2 of the rows of x [n, d] (then of c [k, d]) into out [n + k]:
+// a warp stages 32 rows x 128 depths through shared memory with
+// coalesced loads (16 bytes a lane, eight rows in flight), then each lane
+// runs its row's sequential fmaf chain.
+__global__ void __launch_bounds__(NORM_WARPS * 32)
+row_sqnorms(const float* __restrict__ x, int n, const float* __restrict__ c,
+            int k, int d, int vec4, float* __restrict__ out) {
+  __shared__ float tile[NORM_WARPS][32][NORM_DK + 1];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int base = (blockIdx.x * NORM_WARPS + w) * 32;
+  if (base >= n + k) return;
+  float acc = 0.f;
+  for (int e0 = 0; e0 < d; e0 += NORM_DK) {
+#pragma unroll 8
+    for (int r = 0; r < 32; ++r) {
+      const int row = base + r;
+      const float* src = row < n ? x + (size_t)row * d
+                                 : c + (size_t)(row - n) * d;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      const int e = e0 + 4 * lane;
+      if (row < n + k) {
+        if (vec4) {
+          if (e < d) {
+            const float4 f = *reinterpret_cast<const float4*>(src + e);
+            v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 4; ++h)
+            if (e + h < d) v[h] = src[e + h];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 4; ++h) tile[w][r][4 * lane + h] = v[h];
+    }
+    __syncwarp();
+    const int te = min(NORM_DK, d - e0);
+    for (int t = 0; t < te; ++t) {
+      const float v = tile[w][lane][t];
+      acc = fmaf(v, v, acc);
+    }
+    __syncwarp();
+  }
+  if (base + lane < n + k) out[base + lane] = acc;
+}
+
+template <bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, 1)
 kmeans_assign_tiles(const float* __restrict__ batch,
                     const float* __restrict__ centroids,
-                    const float* __restrict__ penalty, int s, int k, int d,
-                    int per_group, float* __restrict__ part_d,
+                    const float* __restrict__ penalty,
+                    const float* __restrict__ sqn,   // [s + k] from row_sqnorms
+                    int s, int k, int d, int per_group, int vec4,
+                    float* __restrict__ part_d,
                     int32_t* __restrict__ part_i) {
-  __shared__ __align__(16) float xs[DK][LD];   // [depth][row]
-  __shared__ __align__(16) float cs[DK][LD];   // [depth][centroid]
-  __shared__ float x2s[BR];
-  __shared__ float c2s[BC];
-  __shared__ float pens[BC];
+  extern __shared__ __align__(16) float smem[];
+  const int d_pad = (d + DK - 1) / DK * DK;
+  const int ldx = RESIDENT ? d_pad + 4 : LDK;
+  // [resident rows | ring: NST x (centroid chunk [, row chunk])] + x2
+  float* xres = smem;
+  float* ring = smem + (RESIDENT ? BR * ldx : 0);
+  const int stage_floats = RESIDENT ? CHUNK_FLOATS : 2 * CHUNK_FLOATS;
+  float* x2s = ring + NST * stage_floats;
+
   const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
+  const int tx = tid & 15, ty = tid >> 4;
   const int row0 = blockIdx.x * BR;
   const int g = blockIdx.y;
   const int c_begin = g * per_group;
   const int c_end = min(k, c_begin + per_group);
+  const int nch = d_pad / DK;
+  const int total = (c_end - c_begin + BC - 1) / BC * nch;
+  const bool v4 = vec4 != 0;
 
-  float best[TR];
-  int arg[TR];
-#pragma unroll
-  for (int i = 0; i < TR; ++i) { best[i] = FLT_MAX; arg[i] = c_begin; }
-  float x2 = 0.f;   // threads [BR, 2 BR): ||x||^2 of row tid - BR
+  if (tid < BR) x2s[tid] = (row0 + tid < s) ? sqn[row0 + tid] : 0.f;
+  if (RESIDENT) load_rows(xres, ldx, batch, row0, s, d, 0, d_pad, v4);
 
-  for (int t0 = c_begin; t0 < c_end; t0 += BC) {
-    float acc[TR][TC];
+  auto issue = [&](int it) {
+    if (it < total) {
+      const int t0 = c_begin + (it / nch) * BC, e0 = (it % nch) * DK;
+      float* st = ring + (it % NST) * stage_floats;
+      load_rows(st, LDK, centroids, t0, c_end, d, e0, DK, v4);
+      if (!RESIDENT)
+        load_rows(st + CHUNK_FLOATS, LDK, batch, row0, s, d, e0, DK, v4);
+    }
+    cp_async_commit();   // an empty group keeps the wait counts uniform
+  };
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+  for (int p = 0; p < NST - 1; ++p) issue(p);
+
+  float acc[8][8];
 #pragma unroll
-      for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
-    float c2 = 0.f;  // threads [0, BC): ||c||^2 of centroid t0 + tid
-    for (int d0 = 0; d0 < d; d0 += DK) {
-      __syncthreads();
-      for (int idx = tid; idx < DK * BR; idx += THREADS) {
-        const int e = idx % DK, r = idx / DK;
-        const int gr = row0 + r, gc = t0 + r, ge = d0 + e;
-        xs[e][r] = (gr < s && ge < d) ? batch[(size_t)gr * d + ge] : 0.f;
-        cs[e][r] = (gc < c_end && ge < d)
-                       ? centroids[(size_t)gc * d + ge] : 0.f;
-      }
-      __syncthreads();
-      if (tid < BC) {
-        for (int e = 0; e < DK; ++e) c2 = fmaf(cs[e][tid], cs[e][tid], c2);
-      } else if (tid < BC + BR && t0 == c_begin) {
-        const int r = tid - BC;
-        for (int e = 0; e < DK; ++e) x2 = fmaf(xs[e][r], xs[e][r], x2);
-      }
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int e = 0; e < DK; ++e) {
-        const float4 xv = *reinterpret_cast<const float4*>(&xs[e][ty * TR]);
-        const float4 cv = *reinterpret_cast<const float4*>(&cs[e][tx * TC]);
-        const float xa[TR] = {xv.x, xv.y, xv.z, xv.w};
-        const float ca[TC] = {cv.x, cv.y, cv.z, cv.w};
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float best[8];
+  int arg[8];
 #pragma unroll
-        for (int i = 0; i < TR; ++i)
+  for (int i = 0; i < 8; ++i) { best[i] = FLT_MAX; arg[i] = c_begin; }
+
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();          // chunk `it` landed; chunk it-1 fully read
+    issue(it + NST - 1);
+    const int kc = it % nch;
+    const float* cb = ring + (it % NST) * stage_floats;
+    const float* xb = RESIDENT ? xres + kc * DK : cb + CHUNK_FLOATS;
 #pragma unroll
-          for (int j = 0; j < TC; ++j) acc[i][j] = fmaf(xa[i], ca[j], acc[i][j]);
+    for (int e = 0; e < DK; e += 4) {
+      float4 xa[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        xa[i] = *reinterpret_cast<const float4*>(xb + (ty + 16 * i) * ldx + e);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 cv =
+            *reinterpret_cast<const float4*>(cb + (tx + 16 * j) * LDK + e);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float a = acc[i][j];
+          a = fmaf(xa[i].x, cv.x, a);
+          a = fmaf(xa[i].y, cv.y, a);
+          a = fmaf(xa[i].z, cv.z, a);
+          a = fmaf(xa[i].w, cv.w, a);
+          acc[i][j] = a;
+        }
       }
     }
-    if (tid < BC) {
-      c2s[tid] = c2;
-      pens[tid] = (t0 + tid < c_end) ? penalty[t0 + tid] : 0.f;
-    } else if (tid < BC + BR && t0 == c_begin) {
-      x2s[tid - BC] = x2;
-    }
-    __syncthreads();
+    if (kc == nch - 1) {      // the tile's last chunk: fused arg-min
+      const int t0 = c_begin + (it / nch) * BC;
+      float c2v[8], pv[8];
 #pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const float xr2 = x2s[ty * TR + i];
+      for (int j = 0; j < 8; ++j) {
+        const int c = t0 + tx + 16 * j;
+        c2v[j] = (c < c_end) ? sqn[s + c] : 0.f;
+        pv[j] = (c < c_end) ? penalty[c] : 0.f;
+      }
 #pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const int cl = tx * TC + j;
-        if (t0 + cl < c_end) {
-          const float d2 = __fsub_rn(__fadd_rn(xr2, c2s[cl]),
+      for (int i = 0; i < 8; ++i) {
+        const float xr2 = x2s[ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = t0 + tx + 16 * j;
+          const float d2 = __fsub_rn(__fadd_rn(xr2, c2v[j]),
                                      __fmul_rn(2.f, acc[i][j]));
-          const float cost = __fadd_rn(d2, pens[cl]);
-          if (cost < best[i]) { best[i] = cost; arg[i] = t0 + cl; }
+          const float cost = __fadd_rn(d2, pv[j]);
+          if (c < c_end && cost < best[i]) { best[i] = cost; arg[i] = c; }
+          acc[i][j] = 0.f;
         }
       }
     }
   }
-  // reduce the TX threads of each row: min cost, ties to the smaller index
+  cp_async_wait<0>();
+  // reduce the 16 tx threads of each row: min cost, ties to the smaller index
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
+  for (int i = 0; i < 8; ++i) {
     float b = best[i];
     int a = arg[i];
-    for (int off = TX / 2; off > 0; off >>= 1) {
-      const float ob = __shfl_down_sync(0xffffffffu, b, off, TX);
-      const int oa = __shfl_down_sync(0xffffffffu, a, off, TX);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      const float ob = __shfl_down_sync(0xffffffffu, b, off, 16);
+      const int oa = __shfl_down_sync(0xffffffffu, a, off, 16);
       if (ob < b || (ob == b && oa < a)) { b = ob; a = oa; }
     }
-    const int gr = row0 + ty * TR + i;
+    const int gr = row0 + ty + 16 * i;
     if (tx == 0 && gr < s) {
       part_d[(size_t)g * s + gr] = b;
       part_i[(size_t)g * s + gr] = a;
@@ -163,24 +303,52 @@ __global__ void kmeans_assign_groups(const float* __restrict__ part_d,
   out_d[r] = b;
 }
 
+// Dynamic shared memory of the tile kernel; resident when it fits.
+size_t tile_smem(int d, bool resident) {
+  const int d_pad = (d + DK - 1) / DK * DK;
+  const size_t ring = (size_t)NST * (resident ? 1 : 2) * CHUNK_FLOATS;
+  return ((resident ? (size_t)BR * (d_pad + 4) : 0) + ring + BR) *
+         sizeof(float);
+}
+
+constexpr size_t SMEM_LIMIT = 227 * 1024;   // a block's shared memory
+
 }  // namespace
 
-// Launches both passes on `stream`. The caller allocates the outputs and
-// the group scratch (part_d f32 / part_i i32, [n_groups, s]); n_groups
-// splits the centroids into ranges of `per_group` (a multiple of 64).
-// Returns cudaGetLastError() (0 = launched).
+// Launches the norm pre-pass and both passes on `stream`. The caller
+// allocates the outputs, the norms scratch sqn [s + k] f32 and the group
+// scratch (part_d f32 / part_i i32, [n_groups, s]); n_groups splits the
+// centroids into ranges of `per_group` (a multiple of 128). Returns
+// cudaGetLastError() (0 = launched).
 extern "C" int kmeans_assign_launch(const void* batch, const void* centroids,
                                     const void* penalty, int s, int k, int d,
-                                    int n_groups, int per_group,
+                                    int n_groups, int per_group, void* sqn,
                                     void* part_d, void* part_i, void* out_i,
                                     void* out_d, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  dim3 grid((s + BR - 1) / BR, n_groups);
-  kmeans_assign_tiles<<<grid, THREADS, 0, st>>>(
-      static_cast<const float*>(batch), static_cast<const float*>(centroids),
-      static_cast<const float*>(penalty), s, k, d, per_group,
-      static_cast<float*>(part_d), static_cast<int32_t*>(part_i));
+  const float* x = static_cast<const float*>(batch);
+  const float* c = static_cast<const float*>(centroids);
+  float* nrm = static_cast<float*>(sqn);
+  const int vec4 = (d % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(batch) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(centroids) % 16 == 0);
+  const int rows_per_block = 32 * NORM_WARPS;
+  row_sqnorms<<<(s + k + rows_per_block - 1) / rows_per_block,
+                NORM_WARPS * 32, 0, st>>>(x, s, c, k, d, vec4, nrm);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const bool resident = tile_smem(d, true) <= SMEM_LIMIT;
+  const size_t smem = tile_smem(d, resident);
+  auto kern = resident ? kmeans_assign_tiles<true>
+                       : kmeans_assign_tiles<false>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((s + BR - 1) / BR, n_groups);
+  kern<<<grid, THREADS, smem, st>>>(
+      x, c, static_cast<const float*>(penalty), nrm, s, k, d, per_group,
+      vec4, static_cast<float*>(part_d), static_cast<int32_t*>(part_i));
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   kmeans_assign_groups<<<(s + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(part_d), static_cast<const int32_t*>(part_i),

@@ -17,169 +17,426 @@
 // ascending top-k_out by (score, position), carrying flat row ids
 // p * p_max + slot (or `ids` when given), with (MASKED, -1) in the tail.
 //
-// What bounds it on the H100: bytes. The code tier is d bytes a row, 4x
-// fewer than float32, and each pair does 4 * p_max * d integer operations
-// over p_max * d bytes -- far below the int8 rate's balance point.
+// What bounds it on the H100: bytes, and the top-k selection. The code
+// tier is d bytes a row, 4x fewer than float32; each pair does
+// 4 * rows * d integer operations over rows * d bytes, far below the int8
+// rate's balance point. The least time is the selected partitions' valid
+// codes and norms read once (0.014 ms at 512 queries x 8 probes over 1M
+// rows), so what a kernel spends beyond that is finding work and sorting.
 //
-// What the design does about it: the same two-pass skeleton as ivf_scan.cu
-// (parallel over (query, probe chunk), unselected pairs skipped, shared
-// memory partial top-k, pass 2 merge). The accumulation is __dp4a over
-// packed 4 x int8 words, exact, so the accumulators equal the plain
-// version's bit for bit. No 32-row Q padding: the TPU's int8 tile minimum
-// does not exist here.
+// Why no tensor cores: at 512 queries a selected partition is probed by
+// ~1.4 queries on average (4,096 pairs over 2,923 partitions), so an int8
+// MMA tile over 16 or more queries would be more than 90% padding. The
+// work per row is one 128-byte read and 64 __dp4a; what matters is reading
+// only the rows that hold work and sorting only the keys that can win.
+//
+// The design, against each cost of a plain (query, chunk) walk:
+// - Finding the selected pairs: a tiny first kernel (sq_pair_list)
+//   compacts each query's row of `qsel` into a list of its selected probe
+//   positions, and pass 1's block (chunk c, query q) takes an equal share
+//   of that list -- blocks own selected pairs, not ranges of the union.
+//   Without `qsel` (exact search) every position is a pair.
+// - Reading rows: a block walks its pairs' 32-slot groups, eight groups
+//   per warp per round. The warp ballots the valid (and keep) bytes of
+//   all eight, loaded one round ahead, and skips a group with none. In a
+//   group, four teams of 8 lanes take 8 slots each; a lane issues the
+//   16-byte loads of all its team's valid rows at once (coalesced
+//   128-byte rows at d = 128), then __dp4a into exact int32
+//   sums, reduced over the team by shuffles. So a group costs about one
+//   memory latency, not one per row. Valid rows need not form a prefix.
+//   A width that is not a multiple of 16 (or unaligned codes) reads
+//   bytes instead, with the same sums.
+// - Filtering before sorting: a row whose key is at or above the block's
+//   running k-th key is dropped at once. Survivors are appended to a
+//   shared candidate buffer by a warp-aggregated atomic; only when the
+//   buffer could overflow, and at the end, the block sorts it at the next
+//   power of two of its count (in one warp's registers for 32 or fewer)
+//   and merges it into the running top-k by rank. So a pair no longer pays
+//   a 1,024-key sort for ~120 rows.
+// - Pass 2 (topk_merge_pass2) merges each query's per-chunk lists.
+// No 32-row Q padding: the TPU's int8 tile minimum does not exist here.
 
 #include "topk_common.cuh"
 
 namespace {
 
-__global__ void sq_scan_pass1(const int8_t* __restrict__ q_i8,
-                              const float* __restrict__ alpha,
-                              const float* __restrict__ beta,
-                              const float* __restrict__ lo,
-                              const float* __restrict__ scale,
-                              const int8_t* __restrict__ codes,
-                              const float* __restrict__ norms,
-                              const int8_t* __restrict__ valid,
-                              const int8_t* __restrict__ keep,
-                              const int32_t* __restrict__ part_ids,
-                              const int8_t* __restrict__ qsel, int n_q,
-                              int d, int p_max, int n, int chunk,
-                              int n_chunks, int k_out, int metric_l2,
-                              int tile, int vec4,
-                              uint64_t* __restrict__ part_keys,
-                              int32_t* __restrict__ part_cnt) {
+constexpr int THREADS = 256;
+constexpr int NWARPS = THREADS / 32;
+constexpr int GROUP = 32;           // slots a warp examines per item
+constexpr int ITEMS_PER_WARP = 8;   // items per warp between flush checks
+// the most keys one round of items can add
+constexpr int ROUND_MAX = NWARPS * ITEMS_PER_WARP * GROUP;
+constexpr int CAP = 4096;           // candidate buffer (power of two)
+constexpr int PAIR_BATCH = 64;      // pairs staged in shared memory at once
+constexpr int ROWS = GROUP / 4;     // rows of a group per 8-lane team
+constexpr unsigned FULL = 0xffffffffu;
+
+// Slot rsel + 4 h of a group is a row to scan (bit set in the ballot m).
+__device__ __forceinline__ bool row_in(unsigned m, int rsel, int h) {
+  return (m >> (rsel + 4 * h)) & 1u;
+}
+
+// ((c + 128) * scale + lo)^2 added to v2 in the reference's float32 order.
+__device__ __forceinline__ float fmaf_decode(int c, float sc, float lo,
+                                             float v2) {
+  const float v = __fadd_rn(__fmul_rn(__fadd_rn((float)c, 128.f), sc), lo);
+  return fmaf(v, v, v2);
+}
+
+// One packed word (4 codes at depths e .. e + 3) into both exact int32
+// sums, and into the decode norm's partial sum when decoding.
+__device__ __forceinline__ void dot_word(int cw, int xw, int yw, int e,
+                                         bool decode, const float* los,
+                                         const float* scs, int& acc1,
+                                         int& acc2, float& v2) {
+  acc1 = __dp4a(xw, cw, acc1);
+  acc2 = __dp4a(yw, cw, acc2);
+  if (decode) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      v2 = fmaf_decode((int)(int8_t)(cw >> (8 * h)), scs[e + h], los[e + h],
+                       v2);
+  }
+}
+
+// Each query's selected probe positions, in increasing order: pairs
+// [n_q, n] (first pair_cnt[q] entries valid). One block per query; 256
+// threads take 4 positions each per 1,024-position tile, and a block scan
+// orders their writes.
+__global__ void __launch_bounds__(THREADS)
+sq_pair_list(const int8_t* __restrict__ qsel, int n,
+             int32_t* __restrict__ pairs, int32_t* __restrict__ pair_cnt) {
+  __shared__ int wsum[NWARPS];
+  const int q = blockIdx.x;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int8_t* row = qsel + (size_t)q * n;
+  int32_t* out = pairs + (size_t)q * n;
+  int base = 0;
+  for (int t0 = 0; t0 < n; t0 += 4 * THREADS) {
+    const int e0 = t0 + 4 * threadIdx.x;
+    bool f[4];
+    int c = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      f[b] = (e0 + b < n) && row[e0 + b] != 0;
+      c += f[b];
+    }
+    int x = c;   // inclusive warp scan
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, off);
+      if (lane >= off) x += y;
+    }
+    if (lane == 31) wsum[w] = x;
+    __syncthreads();
+    int before = 0, tot = 0;
+#pragma unroll
+    for (int i = 0; i < NWARPS; ++i) {
+      before += (i < w) ? wsum[i] : 0;
+      tot += wsum[i];
+    }
+    int pos = base + before + x - c;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (f[b]) out[pos++] = e0 + b;
+    base += tot;
+    __syncthreads();   // wsum is rewritten by the next tile
+  }
+  if (threadIdx.x == 0) pair_cnt[q] = base;
+}
+
+// Ascending sort of the first m (<= 32) keys of a[] in one warp's
+// registers (bitonic over shuffles); entries [m, 32) are not written.
+__device__ __forceinline__ void warp_sort32(uint64_t* a, int m) {
+  const int lane = threadIdx.x & 31;
+  uint64_t key = lane < m ? a[lane] : EMPTY_KEY;
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const uint64_t other = __shfl_xor_sync(FULL, key, j);
+      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+      key = keep_min ? (other < key ? other : key)
+                     : (other > key ? other : key);
+    }
+  }
+  if (lane < m) a[lane] = key;
+}
+
+// Sort cand[0..m) and merge it into the running list run[0..r) (into tmp,
+// then swapped). Every thread calls it; returns the new length.
+__device__ int flush_candidates(uint64_t*& run, uint64_t*& tmp, int r,
+                                uint64_t* cand, int m, int k_out) {
+  if (m <= 32) {
+    if (threadIdx.x < 32) warp_sort32(cand, m);
+    __syncthreads();
+  } else {
+    int p = 64;
+    while (p < m) p <<= 1;
+    for (int t = m + threadIdx.x; t < p; t += THREADS) cand[t] = EMPTY_KEY;
+    block_bitonic_sort(cand, p);    // syncs before and after
+  }
+  r = block_merge(run, r, cand, m, tmp, k_out);   // syncs after
+  uint64_t* sw = run; run = tmp; tmp = sw;
+  return r;
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+sq_scan_pass1(const int8_t* __restrict__ q_i8,
+              const float* __restrict__ alpha,
+              const float* __restrict__ beta,
+              const float* __restrict__ lo,
+              const float* __restrict__ scale,
+              const int8_t* __restrict__ codes,
+              const float* __restrict__ norms,
+              const int8_t* __restrict__ valid,
+              const int8_t* __restrict__ keep,
+              const int32_t* __restrict__ part_ids,
+              const int32_t* __restrict__ pairs,     // null: all positions
+              const int32_t* __restrict__ pair_cnt,
+              int n_q, int d, int p_max, int n, int n_chunks, int k_out,
+              int metric_l2, int vec16,   // 1: int4 loads, 0: bytes
+              uint64_t* __restrict__ part_keys,
+              int32_t* __restrict__ part_cnt) {
   extern __shared__ __align__(16) uint64_t smem1[];
+  const int dq = (d + 15) & ~15;
   uint64_t* run = smem1;
   uint64_t* tmp = run + k_out;
   uint64_t* cand = tmp + k_out;
-  float* los = reinterpret_cast<float*>(cand + tile);
+  int* pj = reinterpret_cast<int*>(cand + CAP);      // probe positions
+  int* pp = pj + PAIR_BATCH;                         // their partitions
+  int8_t* q1 = reinterpret_cast<int8_t*>(pp + PAIR_BATCH);
+  int8_t* q2 = q1 + dq;
+  float* los = reinterpret_cast<float*>(q2 + dq);
   float* scs = los + d;
-  int8_t* q1 = reinterpret_cast<int8_t*>(scs + d);
-  int8_t* q2 = q1 + ((d + 15) & ~15);
-  const int c = blockIdx.x;
-  const int q = blockIdx.y;
-  for (int t = threadIdx.x; t < d; t += blockDim.x) {
-    q1[t] = q_i8[(size_t)q * d + t];
-    q2[t] = q_i8[(size_t)(n_q + q) * d + t];
-    los[t] = lo[t];
-    scs[t] = scale[t];
-  }
-  const float a1 = alpha[q];
-  const float a2 = alpha[n_q + q];
-  const float b = beta[q];
-  __syncthreads();
+  int* cnt_s = reinterpret_cast<int*>(scs + d);
 
-  int r = 0;
-  const int j0 = c * chunk;
-  const int j1 = min(n, j0 + chunk);
-  for (int j = j0; j < j1; ++j) {
-    if (qsel != nullptr && qsel[(size_t)q * n + j] == 0) continue;
-    const size_t p = (size_t)part_ids[j];
-    for (int s0 = 0; s0 < p_max; s0 += tile) {
-      int found = 0;
-      for (int t = threadIdx.x; t < tile; t += blockDim.x) {
-        uint64_t key = EMPTY_KEY;
-        const int slot = s0 + t;
-        if (slot < p_max) {
-          const size_t row = p * p_max + slot;
-          if (valid[row] != 0 && (keep == nullptr || keep[row] != 0)) {
-            const int8_t* cr = codes + row * d;
-            int acc1 = 0, acc2 = 0;
-            if (vec4) {
-              const int* c4 = reinterpret_cast<const int*>(cr);
-              const int* x4 = reinterpret_cast<const int*>(q1);
-              const int* y4 = reinterpret_cast<const int*>(q2);
-              for (int e = 0; e < (d >> 2); ++e) {
-                const int w = c4[e];
-                acc1 = __dp4a(x4[e], w, acc1);
-                acc2 = __dp4a(y4[e], w, acc2);
-              }
-            } else {
-              for (int e = 0; e < d; ++e) {
-                const int w = cr[e];
-                acc1 += (int)q1[e] * w;
-                acc2 += (int)q2[e] * w;
-              }
-            }
-            const float t1 = __fmul_rn(a1, (float)acc1);
-            const float t2 = __fmul_rn(a2, (float)acc2);
-            const float dots = __fadd_rn(__fadd_rn(t1, t2), b);
-            float s;
-            if (metric_l2) {
-              float v2;
-              if (norms != nullptr) {
-                v2 = norms[row];
-              } else {
-                v2 = 0.f;
-                for (int e = 0; e < d; ++e) {
-                  const float v = __fadd_rn(
-                      __fmul_rn(__fadd_rn((float)cr[e], 128.f), scs[e]),
-                      los[e]);
-                  v2 = fmaf(v, v, v2);
-                }
-              }
-              s = __fsub_rn(v2, __fmul_rn(2.f, dots));
-            } else {
-              s = -dots;
-            }
-            key = make_key(s, (uint32_t)((size_t)j * p_max + slot));
-            if (r == k_out && key >= run[k_out - 1]) key = EMPTY_KEY;
-          }
-        }
-        cand[t] = key;
-        found |= (key != EMPTY_KEY);
-      }
-      if (!__syncthreads_or(found)) continue;
-      block_bitonic_sort(cand, tile);
-      const int m = lower_bound_u64(cand, tile, EMPTY_KEY);
-      r = block_merge(run, r, cand, m, tmp, k_out);
-      uint64_t* sw = run; run = tmp; tmp = sw;
+  const int c = blockIdx.x, q = blockIdx.y;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int sub = lane & 7, rsel = lane >> 3;   // 8 lanes per row
+  for (int t = threadIdx.x; t < dq; t += THREADS) {
+    q1[t] = t < d ? q_i8[(size_t)q * d + t] : 0;
+    q2[t] = t < d ? q_i8[(size_t)(n_q + q) * d + t] : 0;
+  }
+  const bool decode = metric_l2 && norms == nullptr;
+  if (decode) {
+    for (int t = threadIdx.x; t < d; t += THREADS) {
+      los[t] = lo[t];
+      scs[t] = scale[t];
     }
   }
+  if (threadIdx.x == 0) *cnt_s = 0;
+  const float a1 = alpha[q], a2 = alpha[n_q + q], b = beta[q];
+  const int cnt = pairs ? pair_cnt[q] : n;
+  const int per = (cnt + n_chunks - 1) / n_chunks;
+  const int a_begin = min(cnt, c * per), a_end = min(cnt, a_begin + per);
+  const int groups = (p_max + GROUP - 1) / GROUP;
+
+  int r = 0;
+  uint64_t thresh = EMPTY_KEY;   // keys at or above it cannot enter
+  for (int b0 = a_begin; b0 < a_end; b0 += PAIR_BATCH) {
+    const int nb = min(PAIR_BATCH, a_end - b0);
+    __syncthreads();             // the previous batch is fully read
+    for (int t = threadIdx.x; t < nb; t += THREADS) {
+      const int j = pairs ? pairs[(size_t)q * n + b0 + t] : b0 + t;
+      pj[t] = j;
+      pp[t] = part_ids[j];
+    }
+    __syncthreads();
+    const int items = nb * groups;
+    // A lane's valid and keep bytes of this warp's items in a round: the
+    // next round's are loaded before this round's rows are scanned, so
+    // their latency hides behind the scan.
+    int8_t vb[ITEMS_PER_WARP], kb[ITEMS_PER_WARP];
+    auto fetch = [&](int it0) {
+#pragma unroll
+      for (int u = 0; u < ITEMS_PER_WARP; ++u) {
+        const int item = it0 + u * NWARPS + w;
+        const int my = (item % groups) * GROUP + lane;
+        vb[u] = 0;
+        kb[u] = 1;
+        if (item < items && my < p_max) {
+          const size_t at = (size_t)pp[item / groups] * p_max + my;
+          vb[u] = valid[at];
+          if (keep != nullptr) kb[u] = keep[at];
+        }
+      }
+    };
+    fetch(0);
+    for (int it0 = 0; it0 < items; it0 += NWARPS * ITEMS_PER_WARP) {
+      const int held = *cnt_s;   // read after a barrier: uniform
+      if (held + ROUND_MAX > CAP) {
+        r = flush_candidates(run, tmp, r, cand, held, k_out);
+        if (threadIdx.x == 0) *cnt_s = 0;
+        if (r == k_out) thresh = run[k_out - 1];
+        __syncthreads();
+      }
+      // this round's ballots; then each non-empty group's rows, all their
+      // loads at once
+      unsigned mk[ITEMS_PER_WARP];
+#pragma unroll
+      for (int u = 0; u < ITEMS_PER_WARP; ++u)
+        mk[u] = __ballot_sync(FULL, vb[u] != 0 && kb[u] != 0);
+      fetch(it0 + NWARPS * ITEMS_PER_WARP);
+      for (int u = 0; u < ITEMS_PER_WARP; ++u) {
+        const unsigned m = mk[u];
+        if (m == 0) continue;                    // warp-uniform
+        const int item = it0 + u * NWARPS + w;
+        const int slot0 = (item % groups) * GROUP;
+        const int j = pj[item / groups];
+        const size_t rowbase = (size_t)pp[item / groups] * p_max + slot0;
+        // lanes 8 rsel .. 8 rsel + 7 take slots rsel + 4 h, h < 8
+        int acc1[ROWS], acc2[ROWS];
+        float v2[ROWS];
+#pragma unroll
+        for (int h = 0; h < ROWS; ++h) {
+          acc1[h] = 0;
+          acc2[h] = 0;
+          v2[h] = 0.f;
+          if (metric_l2 && !decode && sub == 0 && row_in(m, rsel, h))
+            v2[h] = norms[rowbase + rsel + 4 * h];
+        }
+        if (vec16) {
+          for (int sg = sub; sg < (d >> 4); sg += 8) {
+            int4 cw[ROWS];
+#pragma unroll
+            for (int h = 0; h < ROWS; ++h)
+              cw[h] = row_in(m, rsel, h)
+                          ? __ldg(reinterpret_cast<const int4*>(
+                                codes + (rowbase + rsel + 4 * h) * d) + sg)
+                          : make_int4(0, 0, 0, 0);
+            const int4 xw = reinterpret_cast<const int4*>(q1)[sg];
+            const int4 yw = reinterpret_cast<const int4*>(q2)[sg];
+#pragma unroll
+            for (int h = 0; h < ROWS; ++h) {
+              dot_word(cw[h].x, xw.x, yw.x, 16 * sg, decode, los, scs,
+                       acc1[h], acc2[h], v2[h]);
+              dot_word(cw[h].y, xw.y, yw.y, 16 * sg + 4, decode, los, scs,
+                       acc1[h], acc2[h], v2[h]);
+              dot_word(cw[h].z, xw.z, yw.z, 16 * sg + 8, decode, los, scs,
+                       acc1[h], acc2[h], v2[h]);
+              dot_word(cw[h].w, xw.w, yw.w, 16 * sg + 12, decode, los, scs,
+                       acc1[h], acc2[h], v2[h]);
+            }
+          }
+        } else {
+          for (int e = sub; e < d; e += 8) {
+#pragma unroll
+            for (int h = 0; h < ROWS; ++h) {
+              if (!row_in(m, rsel, h)) continue;
+              const int cv = codes[(rowbase + rsel + 4 * h) * d + e];
+              acc1[h] += (int)q1[e] * cv;
+              acc2[h] += (int)q2[e] * cv;
+              if (decode) v2[h] = fmaf_decode(cv, scs[e], los[e], v2[h]);
+            }
+          }
+        }
+        // exact integer sums over each row's 8 lanes; the decode norm's
+        // partial sums in a fixed tree order
+#pragma unroll
+        for (int h = 0; h < ROWS; ++h) {
+#pragma unroll
+          for (int off = 4; off > 0; off >>= 1) {
+            acc1[h] += __shfl_xor_sync(FULL, acc1[h], off);
+            acc2[h] += __shfl_xor_sync(FULL, acc2[h], off);
+            if (decode) v2[h] += __shfl_xor_sync(FULL, v2[h], off);
+          }
+        }
+        uint64_t key[ROWS];
+        unsigned wb[ROWS];
+        int total = 0;
+#pragma unroll
+        for (int h = 0; h < ROWS; ++h) {
+          key[h] = EMPTY_KEY;
+          if (sub == 0 && row_in(m, rsel, h)) {
+            const float t1 = __fmul_rn(a1, (float)acc1[h]);
+            const float t2 = __fmul_rn(a2, (float)acc2[h]);
+            const float dots = __fadd_rn(__fadd_rn(t1, t2), b);
+            const float s = metric_l2 ? __fsub_rn(v2[h], __fmul_rn(2.f, dots))
+                                      : -dots;
+            const int slot = slot0 + rsel + 4 * h;
+            key[h] = make_key(s, (uint32_t)((size_t)j * p_max + slot));
+          }
+          wb[h] = __ballot_sync(FULL, key[h] < thresh);
+          total += __popc(wb[h]);
+        }
+        int at = 0;                    // one atomic per group
+        if (lane == 0 && total) at = atomicAdd(cnt_s, total);
+        at = __shfl_sync(FULL, at, 0);
+        const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+        for (int h = 0; h < ROWS; ++h) {
+          if (key[h] < thresh) cand[at + __popc(wb[h] & below)] = key[h];
+          at += __popc(wb[h]);
+        }
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();               // cnt_s is final (also with no pairs)
+  const int held = *cnt_s;
+  if (held > 0) r = flush_candidates(run, tmp, r, cand, held, k_out);
   const size_t base = ((size_t)q * n_chunks + c) * (size_t)k_out;
-  for (int t = threadIdx.x; t < r; t += blockDim.x) part_keys[base + t] = run[t];
+  for (int t = threadIdx.x; t < r; t += THREADS) part_keys[base + t] = run[t];
   if (threadIdx.x == 0) part_cnt[(size_t)q * n_chunks + c] = r;
+}
+
+// Dynamic shared memory of pass 1.
+size_t pass1_smem(int k_out, int d) {
+  const int dq = (d + 15) & ~15;
+  return (size_t)(2 * k_out + CAP) * sizeof(uint64_t) +
+         (size_t)2 * PAIR_BATCH * sizeof(int) + (size_t)2 * dq +
+         (size_t)2 * d * sizeof(float) + sizeof(int);
 }
 
 }  // namespace
 
-// Launches both passes on `stream`; the caller allocates scratch and
-// outputs. `norms` and `ids` may be null. Returns cudaGetLastError().
+// Launches the pair list (when qsel is given) and both passes on `stream`;
+// the caller allocates scratch and outputs. `norms`, `ids` and `qsel` may
+// be null; `pairs` [n_q, n] and `pair_cnt` [n_q] are needed with qsel.
+// Returns cudaGetLastError().
 extern "C" int sq_scan_launch(const void* q_i8, const void* alpha,
                               const void* beta, const void* lo,
                               const void* scale, const void* codes,
                               const void* norms, const void* valid,
                               const void* keep, const void* ids,
                               const void* part_ids, const void* qsel,
-                              int n_q, int d, int p_max, int n, int chunk,
-                              int n_chunks, int k_out, int metric_l2,
-                              int tile, int threads, void* part_keys,
+                              int n_q, int d, int p_max, int n, int n_chunks,
+                              int k_out, int metric_l2, void* pairs,
+                              void* pair_cnt, void* part_keys,
                               void* part_cnt, void* out_s, void* out_i,
                               void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int vec4 = (d % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(codes) % 4 == 0);
-  const size_t smem1 = (size_t)(2 * k_out + tile) * sizeof(uint64_t) +
-                       (size_t)2 * d * sizeof(float) +
-                       (size_t)2 * ((d + 15) & ~15);
-  cudaError_t err = allow_smem(sq_scan_pass1, smem1);
+  cudaError_t err;
+  if (qsel != nullptr) {
+    sq_pair_list<<<n_q, THREADS, 0, st>>>(
+        static_cast<const int8_t*>(qsel), n, static_cast<int32_t*>(pairs),
+        static_cast<int32_t*>(pair_cnt));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const uintptr_t cp = reinterpret_cast<uintptr_t>(codes);
+  const int vec16 = d % 16 == 0 && cp % 16 == 0;
+  const size_t smem1 = pass1_smem(k_out, d);
+  err = allow_smem(sq_scan_pass1, smem1);
   if (err != cudaSuccess) return (int)err;
   dim3 grid1(n_chunks, n_q);
-  sq_scan_pass1<<<grid1, threads, smem1, st>>>(
+  sq_scan_pass1<<<grid1, THREADS, smem1, st>>>(
       static_cast<const int8_t*>(q_i8), static_cast<const float*>(alpha),
       static_cast<const float*>(beta), static_cast<const float*>(lo),
       static_cast<const float*>(scale), static_cast<const int8_t*>(codes),
       static_cast<const float*>(norms), static_cast<const int8_t*>(valid),
       static_cast<const int8_t*>(keep), static_cast<const int32_t*>(part_ids),
-      static_cast<const int8_t*>(qsel), n_q, d, p_max, n, chunk, n_chunks,
-      k_out, metric_l2, tile, vec4, static_cast<uint64_t*>(part_keys),
+      qsel ? static_cast<const int32_t*>(pairs) : nullptr,
+      static_cast<const int32_t*>(pair_cnt), n_q, d, p_max, n, n_chunks,
+      k_out, metric_l2, vec16, static_cast<uint64_t*>(part_keys),
       static_cast<int32_t*>(part_cnt));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem2 = pass2_smem_bytes(k_out);
   err = allow_smem(topk_merge_pass2, smem2);
   if (err != cudaSuccess) return (int)err;
-  topk_merge_pass2<<<n_q, threads, smem2, st>>>(
+  topk_merge_pass2<<<n_q, THREADS, smem2, st>>>(
       static_cast<const uint64_t*>(part_keys),
       static_cast<const int32_t*>(part_cnt), n_chunks, k_out,
       static_cast<const int32_t*>(ids), static_cast<const int32_t*>(part_ids),

@@ -20,6 +20,7 @@ from . import build, common
 from .ref import kmeans_assign_ref as kmeans_assign_plain
 
 LAUNCHES = 0
+TILE = 128      # rows per block and centroids per tile of the kernel
 
 
 def balance_penalty(counts: torch.Tensor, balance_weight: float,
@@ -52,13 +53,14 @@ def kmeans_assign(
 
 def _group_plan(s: int, k: int, device: torch.device):
     """(n_groups, per_group): split the centroids into ranges (multiples
-    of the 64-wide tile) so that (row blocks x groups) fills the card
-    about twice over."""
+    of the 128-wide tile) so that (row blocks x groups) fills the card's
+    SMs once: the tile kernel runs one 256-thread block per SM, and a
+    second wave would run almost empty."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_blocks = -(-s // 64)
-    tiles = -(-k // 64)
-    n_groups = max(1, min(tiles, -(-(2 * sms) // row_blocks)))
-    per_group = -(-tiles // n_groups) * 64
+    row_blocks = -(-s // TILE)
+    tiles = -(-k // TILE)
+    n_groups = max(1, min(tiles, sms // row_blocks))
+    per_group = -(-tiles // n_groups) * TILE
     return -(-k // per_group), per_group
 
 
@@ -81,15 +83,13 @@ def _launch(batch, centroids, penalty):
     n_groups, per_group = _group_plan(s, k, dev)
     part_d = torch.empty((n_groups, s), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_groups, s), dtype=torch.int32, device=dev)
-    x = common.as_dtype(batch, torch.float32)
-    c = common.as_dtype(centroids, torch.float32)
-    pen = common.as_dtype(penalty, torch.float32)
-    lib = build.load("kmeans_assign")
-    rc = lib.kmeans_assign_launch(common.ptr(x), common.ptr(c),
-                                  common.ptr(pen), s, k, d, n_groups,
-                                  per_group, common.ptr(part_d),
-                                  common.ptr(part_i), common.ptr(out_i),
-                                  common.ptr(out_d), common.stream_ptr(dev))
+    sqn = torch.empty((s + k,), dtype=torch.float32, device=dev)
+    ins = [common.as_dtype(t, torch.float32)
+           for t in (batch, centroids, penalty)]
+    rc = build.load("kmeans_assign").kmeans_assign_launch(
+        *[common.ptr(t) for t in ins], s, k, d, n_groups, per_group,
+        common.ptr(sqn), common.ptr(part_d), common.ptr(part_i),
+        common.ptr(out_i), common.ptr(out_d), common.stream_ptr(dev))
     build.check_launch("kmeans_assign", rc)
     LAUNCHES += 1
     return out_i, out_d

@@ -76,34 +76,41 @@ def _launch(q_i8, alpha, beta, lo, scale, codes, valid, ids, part_ids,
     common.require_shape("sq_scan", (n_q, n), qsel=qsel)
     common.require_shape("sq_scan", (d,), lo=lo, scale=scale)
     common.require_shape("sq_scan", (2 * n_q,), alpha=alpha)
-    out_s = torch.full((n_q, k_out), MASKED_SCORE, dtype=torch.float32,
-                       device=dev)
-    out_i = torch.full((n_q, k_out), -1, dtype=torch.int32, device=dev)
     if n_q == 0 or n == 0 or k_out == 0:
-        return out_s, out_i
-    n_chunks, chunk, tile = common.scan_plan(n_q, n, p_max, k_out, d, dev)
-    args = [common.as_dtype(q_i8, torch.int8),
-            common.as_dtype(alpha, torch.float32),
-            common.as_dtype(beta, torch.float32),
-            common.as_dtype(lo, torch.float32),
-            common.as_dtype(scale, torch.float32),
-            common.as_dtype(codes, torch.int8),
-            common.as_dtype(norms if metric == "l2" else None,
-                            torch.float32),
-            common.as_dtype(valid, torch.int8),
-            common.as_dtype(keep, torch.int8),
-            common.as_dtype(ids, torch.int32),
-            common.as_dtype(part_ids, torch.int32),
-            common.as_dtype(qsel, torch.int8)]
+        return (torch.full((n_q, k_out), MASKED_SCORE, dtype=torch.float32,
+                           device=dev),
+                torch.full((n_q, k_out), -1, dtype=torch.int32, device=dev))
+    if n * p_max >= 2 ** 31:
+        raise ValueError("probe list too long: n * p_max must stay below "
+                         "2^31 positions")
+    n_chunks = common.sq_scan_plan(n_q, n, dev)
+    # pass 2 writes every output entry, the (MASKED, -1) tail included
+    out_s = torch.empty((n_q, k_out), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_q, k_out), dtype=torch.int32, device=dev)
+    ins = [common.as_dtype(q_i8, torch.int8),
+           common.as_dtype(alpha, torch.float32),
+           common.as_dtype(beta, torch.float32),
+           common.as_dtype(lo, torch.float32),
+           common.as_dtype(scale, torch.float32),
+           common.as_dtype(codes, torch.int8),
+           common.as_dtype(norms if metric == "l2" else None, torch.float32),
+           common.as_dtype(valid, torch.int8),
+           common.as_dtype(keep, torch.int8),
+           common.as_dtype(ids, torch.int32),
+           common.as_dtype(part_ids, torch.int32),
+           common.as_dtype(qsel, torch.int8)]
+    # selected pair lists [n_q, n] + their counts [n_q], with qsel only
+    pairs = torch.empty((n_q * (n + 1),) if qsel is not None else (0,),
+                        dtype=torch.int32, device=dev)
     part_keys = torch.empty((n_q, n_chunks, k_out), dtype=torch.int64,
                             device=dev)
     part_cnt = torch.empty((n_q, n_chunks), dtype=torch.int32, device=dev)
-    lib = build.load("sq_scan")
-    rc = lib.sq_scan_launch(
-        *[common.ptr(a) for a in args],
-        n_q, d, p_max, n, chunk, n_chunks, k_out, int(metric == "l2"), tile,
-        common.THREADS, common.ptr(part_keys), common.ptr(part_cnt),
-        common.ptr(out_s), common.ptr(out_i), common.stream_ptr(dev))
+    pair_cnt = pairs[n_q * n:] if qsel is not None else None
+    rc = build.load("sq_scan").sq_scan_launch(
+        *[common.ptr(a) for a in ins], n_q, d, p_max, n, n_chunks, k_out,
+        int(metric == "l2"), common.ptr(pairs), common.ptr(pair_cnt),
+        common.ptr(part_keys), common.ptr(part_cnt), common.ptr(out_s),
+        common.ptr(out_i), common.stream_ptr(dev))
     build.check_launch("sq_scan", rc)
     LAUNCHES += 1
     return out_s, out_i

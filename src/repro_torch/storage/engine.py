@@ -171,7 +171,7 @@ class MicroNN:
             if qs is not None:
                 # durable codes are authoritative; rows without one are
                 # re-encoded from float32
-                qstats = quantize.stats_from_arrays(*qs)
+                qstats = quantize.stats_from_arrays(*qs, device=self.device)
                 codes_live, found = self.store.codes_for(ids[live])
                 if not found.all():
                     codes_live[~found] = quantize.encode_np(

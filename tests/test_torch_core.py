@@ -22,8 +22,9 @@ from repro.core import quantize as jquantize
 from repro.core import query as jquery
 from repro.core import topk as jtopk
 from repro.core.types import SearchResult as JSearchResult
-from repro_torch.core import hybrid, kmeans, quantize, query, topk
-from repro_torch.core.types import QuantStats, SearchResult
+from repro_torch.core import hybrid, ivf, kmeans, quantize, query, topk
+from repro_torch.core.types import (DeltaStore, IVFConfig, QuantStats,
+                                    SearchResult)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -114,7 +115,7 @@ def test_quantize_codes_bitwise():
         quantize.row_norms(tst, codes).numpy(), rtol=1e-6)
     # the stats round-trip through host arrays is exact
     lo, scale = quantize.stats_to_arrays(tst)
-    back = quantize.stats_from_arrays(lo, scale)
+    back = quantize.stats_from_arrays(lo, scale, device="cpu")
     assert torch.equal(back.lo, tst.lo) and torch.equal(back.scale, tst.scale)
 
 
@@ -238,3 +239,34 @@ def test_final_assign_matches_jax(balanced):
                                  balanced=balanced)
     np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
     np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+
+
+_X_SMALL = np.random.default_rng(14).normal(size=(60, 8)).astype(np.float32)
+_CFG_SMALL = IVFConfig(dim=8, target_partition_size=20, kmeans_iters=2,
+                       minibatch_size=16)
+# each public function that places tensors, called with **kw -> the device
+# its result lives on (None where it returns host arrays only)
+_PLACERS = [
+    ("build_index", lambda **kw: ivf.build_index(
+        _X_SMALL, cfg=_CFG_SMALL, **kw).device),
+    ("MiniBatchKMeans",
+     lambda **kw: kmeans.MiniBatchKMeans(_CFG_SMALL, **kw).device),
+    ("fit_in_memory",
+     lambda **kw: kmeans.fit_in_memory(_X_SMALL, _CFG_SMALL, **kw) and None),
+    ("stats_from_arrays", lambda **kw: quantize.stats_from_arrays(
+        np.zeros(8, np.float32), np.ones(8, np.float32), **kw).lo.device),
+    ("DeltaStore.empty",
+     lambda **kw: DeltaStore.empty(4, 8, 1, **kw).vectors.device),
+]
+
+
+@pytest.mark.parametrize("name,place", _PLACERS, ids=[p[0] for p in _PLACERS])
+def test_entry_points_default_to_the_card(name, place):
+    # no device argument means the card: without one, resolve_device's
+    # RuntimeError; an explicit device="cpu" still runs on the host
+    if torch.cuda.is_available():
+        assert getattr(place(), "type", "cuda") == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            place()
+    assert getattr(place(device="cpu"), "type", "cpu") == "cpu"

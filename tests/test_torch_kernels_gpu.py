@@ -122,7 +122,9 @@ def test_scan_kernels_width_not_multiple_of_4(cuda):
         sq = (q_i8, alpha, beta, st.lo, st.scale, codes, x["valid"], None,
               x["union"], 90, "l2", x["qsel"], None, norms)
         got = sq_scan.sq_scan_folded(*sq[:10], qsel=x["qsel"], norms=norms)
-        _same(sq_scan.sq_scan_plain(*sq), got, _tol(x))
+        err = _same(sq_scan.sq_scan_plain(*sq), got, _tol(x))
+        if norms is not None:
+            assert err == 0.0      # byte loads: still exact accumulators
 
 
 @pytest.mark.parametrize("metric,with_norms",
@@ -144,29 +146,122 @@ def test_sq_scan_kernel_matches_plain(cuda, metric, with_norms):
         assert err == 0.0      # exact accumulators, same epilogue order
 
 
-@pytest.mark.parametrize("balance_weight", [0.0, 1.0])
-def test_kmeans_assign_kernel_matches_plain(cuda, balance_weight):
-    g = torch.Generator().manual_seed(4)
-    cents = (torch.randn((1000, 40), generator=g) * 3).to(cuda)  # ragged
-    batch = (cents[torch.randint(0, 1000, (3000,), generator=g).to(cuda)]
-             + torch.randn((3000, 40), generator=g).to(cuda))
-    counts = (torch.rand((1000,), generator=g) * 80).to(cuda)
-    pen = kmeans_assign.balance_penalty(counts, balance_weight, 50, 2.0)
+def _check_assign(batch, cents, pen, a_k, c_k, agree=0.999):
+    """Costs within the tolerance of the plain version's, and a different
+    arg-min only where the two centroids' exact (float64) costs tie."""
     a_r, c_r = kmeans_assign.kmeans_assign_plain(batch, cents, pen)
-    a_k, c_k = kmeans_assign.kmeans_assign(batch, cents, counts,
-                                           balance_weight=balance_weight,
-                                           target_size=50, scale=2.0)
+    torch.cuda.synchronize()
     tol = 1e-5 * (torch.sum(batch ** 2, -1)
                   + float(torch.sum(cents ** 2, -1).max()))
     assert bool(((c_r - c_k).abs() <= tol).all())
-    # a different arg-min only where the two centroids' exact costs tie
     x64, c64 = batch.double(), cents.double()
 
     def exact(a):
-        c = c64[a.long()]
-        return ((x64 - c) ** 2).sum(-1) + pen.double()[a.long()]
+        return ((x64 - c64[a.long()]) ** 2).sum(-1) + pen.double()[a.long()]
     assert bool(((exact(a_r) - exact(a_k)).abs() <= tol).all())
-    assert float((a_r == a_k).float().mean()) >= 0.999
+    assert float((a_r == a_k).float().mean()) >= agree
+
+
+# (s, k, d): ragged rows and centroids (3000, 1000), the build's ragged
+# last batch of 1M rows (576), k not a multiple of the 128 tile (10,000
+# and 97), and widths 30 and 40 (4-byte / 16-byte copies), 128 (resident
+# row tile) and 960 (rows streamed beside the centroids)
+@pytest.mark.parametrize("s,k,d", [(3000, 1000, 40), (576, 10000, 128),
+                                   (4096, 97, 128), (300, 1000, 30),
+                                   (520, 700, 960)])
+@pytest.mark.parametrize("balance_weight", [0.0, 1.0])
+def test_kmeans_assign_kernel_matches_plain(cuda, s, k, d, balance_weight):
+    g = torch.Generator().manual_seed(s + k + d)
+    cents = (torch.randn((k, d), generator=g) * 3).to(cuda)
+    batch = (cents[torch.randint(0, k, (s,), generator=g).to(cuda)]
+             + torch.randn((s, d), generator=g).to(cuda))
+    counts = (torch.rand((k,), generator=g) * 80).to(cuda)
+    pen = kmeans_assign.balance_penalty(counts, balance_weight, 50, 2.0)
+    before = kmeans_assign.LAUNCHES
+    a_k, c_k = kmeans_assign.kmeans_assign(batch, cents, counts,
+                                           balance_weight=balance_weight,
+                                           target_size=50, scale=2.0)
+    assert kmeans_assign.LAUNCHES == before + 1
+    _check_assign(batch, cents, pen, a_k, c_k)
+
+
+def test_kmeans_assign_kernel_duplicate_centroids_first_index(cuda):
+    # exact duplicates give bit-equal costs: the first index must win,
+    # within one thread's columns (9 / 25), across the threads of a tile
+    # (7 / 60), across tiles (3 / 700) and across the centroid groups of
+    # blockIdx.y (5 / 9000)
+    g = torch.Generator().manual_seed(8)
+    cents = torch.randn((10000, 128), generator=g) * 3
+    for first, dup in ((9, 25), (7, 60), (3, 700), (5, 9000)):
+        cents[dup] = cents[first]
+    cents = cents.to(cuda)
+    firsts = torch.tensor([9, 7, 3, 5] * 100, device=cuda)
+    batch = cents[firsts] + 0.01 * torch.randn(
+        (400, 128), generator=g).to(cuda)
+    zero = torch.zeros((10000,), device=cuda)
+    a_k, c_k = kmeans_assign.kmeans_assign(batch, cents, zero)
+    torch.cuda.synchronize()
+    assert torch.equal(a_k.long(), firsts)
+    # the plain version's own tie order is torch.min's: not compared
+    _check_assign(batch, cents, zero, a_k, c_k, agree=0.0)
+
+
+def _sq_case(dev, case):
+    """Inputs of one sq_scan edge case -> (x, k_out, qsel, keep)."""
+    kw = {}
+    if case == "k400_pmax568":
+        kw = dict(kp=300, p_max=568, d=128, n_q=32, n_probe=8, p_valid=0.25)
+    x = _inputs(dev, seed=11, **kw)
+    qsel, keep, k_out = x["qsel"], None, 120
+    if case == "holes":
+        # valid rows are not a prefix, and every 7th partition is empty
+        g = torch.Generator().manual_seed(12)
+        x["valid"] = (torch.rand(x["valid"].shape, generator=g) < 0.4
+                      ).to(dev)
+        x["valid"][::7] = False
+    elif case == "empty_qsel_row":
+        qsel = qsel.clone()
+        qsel[0] = False
+        qsel[5, :] = False
+    elif case == "k_above_rows":
+        g = torch.Generator().manual_seed(13)
+        x["valid"] &= (torch.rand(x["valid"].shape, generator=g) < 0.02
+                       ).to(dev)
+        k_out = 700
+    elif case == "exact":
+        qsel = None
+    elif case == "keep":
+        keep = compile_filter(Pred(0, ">=", 2))(x["attrs"])
+    elif case == "k400_pmax568":
+        k_out = 400
+    return x, k_out, qsel, keep
+
+
+@pytest.mark.parametrize("case", ["holes", "empty_qsel_row", "k_above_rows",
+                                  "exact", "keep", "k400_pmax568"])
+def test_sq_scan_kernel_cases(cuda, case):
+    # each case on both routes: precomputed norms (bit for bit) and the
+    # in-scan decode (within tolerance)
+    x, k_out, qsel, keep = _sq_case(cuda, case)
+    d = x["vec"].shape[-1]
+    st = quantize.train(x["vec"].reshape(-1, d))
+    codes = quantize.encode(st, x["vec"])
+    q_i8, alpha, beta = quantize.fold_queries(st, x["q"])
+    for norms in (quantize.row_norms(st, codes), None):
+        args = (q_i8, alpha, beta, st.lo, st.scale, codes, x["valid"], None,
+                x["union"], k_out, "l2", qsel, keep, norms)
+        got = sq_scan.sq_scan_folded(*args[:10], qsel=qsel, keep=keep,
+                                     norms=norms)
+        err = _same(sq_scan.sq_scan_plain(*args), got, _tol(x))
+        if norms is not None:
+            assert err == 0.0
+        ids = got[1].cpu().numpy()
+        for row in ids:                       # no repeats, -1 only last
+            r = row[row >= 0]
+            assert len(set(r.tolist())) == len(r)
+            assert (row[len(r):] == -1).all()
+        if case == "empty_qsel_row":
+            assert (ids[0] == -1).all() and (ids[5] == -1).all()
 
 
 def _to(index, dev):

@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # full run (one card, ~a few minutes)
     python3 chip_smoke.py --quick    # build + one launch of each kernel
+    python3 chip_smoke.py --kernels-only [--src OTHER/src]
+                                     # phase 4 alone, on an in-memory index
 
 Phases (any failure exits non-zero and prints no result line):
   1. device   -- name, count, `nvidia-smi` name and power limit.
@@ -20,8 +22,9 @@ Phases (any failure exits non-zero and prints no result line):
   4. kernels  -- each kernel against its plain PyTorch version on the card
                  at the main path's shapes plus edge cases, then timed with
                  CUDA events beside the plain version and a PyTorch
-                 yardstick (library_ms), with its roofline bound; K2 and K3
-                 also as their kernels' device time in a profiler trace.
+                 yardstick (library_ms), with its roofline bound, and as
+                 their kernels' device time in a profiler trace; K1 on the
+                 exact route also without row sharing, bit for bit.
   5. result   -- one JSON line of kernels, the card's name and power limit,
                  and the contract line {"ok": true, "device": {...}}.
 """
@@ -55,8 +58,10 @@ KERNEL_META = {
         route="cuda", source="src/repro_torch/kernels/csrc/kmeans_assign.cu",
         replaces="src/repro/kernels/kmeans_assign.py:56"),
 }
-# each kernel's CUDA kernels, by name, for its device time in a trace
-K2_KERNELS = ("sq_pair_list", "sq_scan_pass1", "topk_merge_pass2")
+# each kernel's CUDA kernels (and K1's memset of its limits), by name, for
+# its device time in a trace
+K1_KERNELS = ("pair_list", "ivf_scan_pass1", "topk_merge_pass2", "Memset")
+K2_KERNELS = ("pair_list", "sq_scan_pass1", "topk_merge_pass2")
 K3_KERNELS = ("row_sqnorms", "kmeans_assign_tiles", "kmeans_assign_groups")
 
 
@@ -112,19 +117,26 @@ def build_kernels():
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(fn, iters=10):
-    """Mean device time of fn() over `iters` runs after one warm-up."""
+def cuda_ms(fn, iters=10, reps=1):
+    """Mean time per fn() over `iters` back-to-back runs after one
+    warm-up, between CUDA events; with reps > 1 the median of that many
+    such windows (a wrapper's time at small batches is its host work, and
+    the shared host's stalls would otherwise land in one window)."""
+    import statistics
     import torch
     fn()
     torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / iters)
+    return statistics.median(times)
 
 
 def kernel_device_ms(fn, kernels, iters=10):
@@ -292,6 +304,24 @@ def check_kernels(idx, cases, batch, timed):
                                    part_ids, kk, "l2", qsel, kmask, norms)
         note("sq_scan_topk", *compare(ref, got, tol, f"sq_scan {kname}"))
 
+    # row sharing on the exact route must not change a bit: the default
+    # query group against one query a block
+    group = getattr(ivf_scan, "MAX_GROUP", None)
+    for label, q, part_ids, qsel, k_out in cases:
+        if qsel is not None or group is None:
+            continue
+        a = ivf_scan.ivf_scan_topk(q, vec, valid, ids, part_ids, k_out)
+        ivf_scan.MAX_GROUP = 1
+        try:
+            b = ivf_scan.ivf_scan_topk(q, vec, valid, ids, part_ids, k_out)
+        finally:
+            ivf_scan.MAX_GROUP = group
+        torch.cuda.synchronize()
+        same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        log(f"  ivf_scan {label}: row sharing bit-identical to one query a "
+            f"block: {same}")
+        note("ivf_scan_topk", 0.0, same)
+
     # kmeans_assign at the build's shape: unbalanced and balanced. The
     # plain side forms the penalty itself: counts * (lambda * scale /
     # target), lambda = bw, scale = 3, target = 100.
@@ -331,36 +361,10 @@ def check_kernels(idx, cases, batch, timed):
     # torch ops outside the kernel. Beside it, the device time of K2's own
     # kernels in a profiler trace: the gap is the wrapper's host work
     # (checks, allocations, ctypes), not kernel time.
-    for label, q, part_ids, qsel, k_out in cases:
-        q_i8, alpha, beta = quantize.fold_queries(stats, q)
-        n_q = q.shape[0]
-        k_sq = min(4 * k_out, part_ids.shape[0] * p_max)
-        t1 = cuda_ms(lambda: ivf_scan.ivf_scan_topk(
-            q, vec, valid, ids, part_ids, k_out, "l2", qsel, None))
-        t2 = cuda_ms(lambda: sq_scan.sq_scan_folded(
-            q_i8, alpha, beta, lo, scale, codes, valid, None, part_ids,
-            k_sq, "l2", qsel, None, norms))
-        t2_dev = kernel_device_ms(lambda: sq_scan.sq_scan_folded(
-            q_i8, alpha, beta, lo, scale, codes, valid, None, part_ids,
-            k_sq, "l2", qsel, None, norms), K2_KERNELS)
-        b1 = 1e3 * max(k1_bound(part_ids, qsel, valid, n_q, d, p_max, k_out))
-        b2 = 1e3 * max(k2_bound(part_ids, qsel, valid, n_q, d, p_max, k_sq))
-        parts, rows, pair_rows = scan_work(part_ids, qsel, valid, n_q)
-        log(f"  time {label} (n={part_ids.shape[0]}, selected partitions "
-            f"{parts}, their valid rows {rows:.0f}, pair rows "
-            f"{pair_rows:.0f}): ivf_scan {t1:.4f} ms (k_out={k_out}, bound "
-            f"{b1:.4f}), sq_scan {t2:.4f} ms, its kernels' device time "
-            f"{fmt_ms(t2_dev)} (k_out={k_sq}, bound {b2:.4f})")
-        if label == timing_case[0]:
-            res["sq_scan_topk"]["device_ms"] = t2_dev
-
-    # -- timing at the largest main-path shape ------------------------------
-    label, q, part_ids, qsel, k_out = timing_case
-    n = part_ids.shape[0]
-    n_q = q.shape[0]
-    pid_l = part_ids.long()
-
-    def lib_k1():
+    def lib_k1(q, part_ids, qsel, k_out):
+        """K1's function in one dense product + topk over every probed
+        row: the yardstick (exactly K1's work on the exact route)."""
+        pid_l = part_ids.long()
         pv = vec[pid_l].reshape(-1, d)
         s = torch.sum(pv * pv, -1)[None, :] - 2.0 * f32_matmul(q, pv.T)
         ok = valid[pid_l].reshape(1, -1)
@@ -369,12 +373,69 @@ def check_kernels(idx, cases, batch, timed):
         s = s.masked_fill(~ok, float("inf"))
         return torch.topk(s, k_out, dim=1, largest=False)
 
+    for label, q, part_ids, qsel, k_out in cases:
+        q_i8, alpha, beta = quantize.fold_queries(stats, q)
+        n_q = q.shape[0]
+        k_sq = min(4 * k_out, part_ids.shape[0] * p_max)
+
+        def k1_call():
+            return ivf_scan.ivf_scan_topk(q, vec, valid, ids, part_ids,
+                                          k_out, "l2", qsel, None)
+        t1 = cuda_ms(k1_call, reps=5)
+        t1_dev = kernel_device_ms(k1_call, K1_KERNELS)
+        t2 = cuda_ms(lambda: sq_scan.sq_scan_folded(
+            q_i8, alpha, beta, lo, scale, codes, valid, None, part_ids,
+            k_sq, "l2", qsel, None, norms), reps=5)
+        t2_dev = kernel_device_ms(lambda: sq_scan.sq_scan_folded(
+            q_i8, alpha, beta, lo, scale, codes, valid, None, part_ids,
+            k_sq, "l2", qsel, None, norms), K2_KERNELS)
+        b1 = 1e3 * max(k1_bound(part_ids, qsel, valid, n_q, d, p_max, k_out))
+        b2 = 1e3 * max(k2_bound(part_ids, qsel, valid, n_q, d, p_max, k_sq))
+        parts, rows, pair_rows = scan_work(part_ids, qsel, valid, n_q)
+        log(f"  time {label} (n={part_ids.shape[0]}, selected partitions "
+            f"{parts}, their valid rows {rows:.0f}, pair rows "
+            f"{pair_rows:.0f}): ivf_scan {t1:.4f} ms, its kernels' device "
+            f"time {fmt_ms(t1_dev)} (k_out={k_out}, bound {b1:.4f}), "
+            f"sq_scan {t2:.4f} ms, its kernels' device time "
+            f"{fmt_ms(t2_dev)} (k_out={k_sq}, bound {b2:.4f})")
+        if label == timing_case[0]:
+            res["ivf_scan_topk"]["device_ms"] = t1_dev
+            res["sq_scan_topk"]["device_ms"] = t2_dev
+        if qsel is None:
+            # the exact route: K1 without row sharing (one query a block),
+            # and the dense yardstick, which does exactly K1's work here
+            ex = dict(shape=f"Q={n_q} n={part_ids.shape[0]} k_out={k_out}",
+                      ms=t1, device_ms=t1_dev, bound_ms=b1,
+                      library_ms=cuda_ms(lambda: lib_k1(q, part_ids, None,
+                                                        k_out), iters=3))
+            group = getattr(ivf_scan, "MAX_GROUP", None)
+            if group is not None:
+                ivf_scan.MAX_GROUP = 1
+                try:
+                    ex["no_row_sharing_ms"] = cuda_ms(k1_call, reps=5)
+                    ex["no_row_sharing_device_ms"] = kernel_device_ms(
+                        k1_call, K1_KERNELS)
+                finally:
+                    ivf_scan.MAX_GROUP = group
+            log(f"  time {label} ivf_scan: library {ex['library_ms']:.4f} "
+                f"ms; without row sharing "
+                f"{fmt_ms(ex.get('no_row_sharing_ms'))}, device "
+                f"{fmt_ms(ex.get('no_row_sharing_device_ms'))}")
+            res["ivf_scan_topk"]["exact"] = ex
+
+    # -- timing at the largest main-path shape ------------------------------
+    label, q, part_ids, qsel, k_out = timing_case
+    n = part_ids.shape[0]
+    n_q = q.shape[0]
+    pid_l = part_ids.long()
+
     k1 = res["ivf_scan_topk"]
     k1["ms"] = cuda_ms(lambda: ivf_scan.ivf_scan_topk(
-        q, vec, valid, ids, part_ids, k_out, "l2", qsel, None))
+        q, vec, valid, ids, part_ids, k_out, "l2", qsel, None), reps=5)
     k1["plain_ms"] = cuda_ms(lambda: ivf_scan.ivf_scan_plain(
         q, vec, valid, ids, part_ids, k_out, "l2", qsel, None), iters=3)
-    k1["library_ms"] = cuda_ms(lib_k1, iters=3)
+    k1["library_ms"] = cuda_ms(lambda: lib_k1(q, part_ids, qsel, k_out),
+                               iters=3)
     b1, o1 = k1_bound(part_ids, qsel, valid, n_q, d, p_max, k_out)
     k1["bound_ms"] = 1e3 * max(b1, o1)
     k1["bound_by"] = "bytes" if b1 >= o1 else "operations"
@@ -398,7 +459,7 @@ def check_kernels(idx, cases, batch, timed):
     k2 = res["sq_scan_topk"]
     k2["ms"] = cuda_ms(lambda: sq_scan.sq_scan_folded(
         q_i8, alpha, beta, lo, scale, codes, valid, None, part_ids, k_sq,
-        "l2", qsel, None, norms))
+        "l2", qsel, None, norms), reps=5)
     k2["plain_ms"] = cuda_ms(lambda: sq_scan.sq_scan_plain(
         q_i8, alpha, beta, lo, scale, codes, valid, None, part_ids, k_sq,
         "l2", qsel, None, norms), iters=3)
@@ -426,7 +487,8 @@ def check_kernels(idx, cases, batch, timed):
     # Each shape also as K3's kernels' device time in a profiler trace.
     for rows in (576, s_rows):
         xb = batch[:rows].contiguous()
-        t_w = cuda_ms(lambda: kmeans_assign.kmeans_assign(xb, cents, pen0))
+        t_w = cuda_ms(lambda: kmeans_assign.kmeans_assign(xb, cents, pen0),
+                      reps=5)
         t_dev = kernel_device_ms(
             lambda: kmeans_assign.kmeans_assign(xb, cents, pen0), K3_KERNELS)
         log(f"  time kmeans_assign [s={rows} k={k} d={d}]: kernel {t_w:.4f}"
@@ -436,7 +498,7 @@ def check_kernels(idx, cases, batch, timed):
             res["kmeans_assign"]["device_ms"] = t_dev
     k3 = res["kmeans_assign"]
     k3["ms"] = cuda_ms(lambda: kmeans_assign.kmeans_assign(batch, cents,
-                                                           pen0))
+                                                           pen0), reps=5)
     k3["plain_ms"] = cuda_ms(lambda: kmeans_assign.kmeans_assign_plain(
         batch, cents, pen0))
     k3["library_ms"] = cuda_ms(lib_k3)
@@ -761,44 +823,46 @@ def main_path():
 
 
 def profile_queries(eng, queries):
-    """Device busy share of one query batch per tier, from a
-    torch.profiler trace: device kernel time over host wall time."""
+    """Device busy share of one query batch per tier (and of the exact
+    batch), from a torch.profiler trace: device kernel time over host wall
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.query import Q as QB
-    for tier, spec in (("int8", QB.knn(k=100, n_probe=8)),
-                       ("f32", QB.knn(k=100, n_probe=8).quantized(False))):
-        for n_q in (1, 512):
-            q = queries[:n_q]
-            eng.query(q, spec)
+    int8 = QB.knn(k=100, n_probe=8)
+    f32 = QB.knn(k=100, n_probe=8).quantized(False)
+    for tier, spec, n_q in (("int8", int8, 1), ("int8", int8, 512),
+                            ("f32", f32, 1), ("f32", f32, 512),
+                            ("exact", QB.exact(k=100), 8)):
+        q = queries[:n_q]
+        eng.query(q, spec)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.query(q, spec).to_numpy()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                eng.query(q, spec).to_numpy()
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            rows = prof.key_averages()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = prof.key_averages()
 
-            def dev_us(e):
-                return getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-            busy = sum(dev_us(e) for e in rows)
-            top = sorted(rows, key=dev_us, reverse=True)[:6]
-            if busy <= 0:
-                log(f"profile {tier} Q={n_q}: no device time in the trace "
-                    f"(busy share not measured)")
-                continue
-            log(f"profile {tier} Q={n_q}: wall {wall_us / 1e3:.3f} ms, "
-                f"device busy {busy / 1e3:.3f} ms, idle share "
-                f"{1 - busy / wall_us:.3f}; top: " + "; ".join(
-                    f"{e.key[:40]} {dev_us(e) / 1e3:.3f} ms" for e in top))
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+        busy = sum(dev_us(e) for e in rows)
+        top = sorted(rows, key=dev_us, reverse=True)[:6]
+        if busy <= 0:
+            log(f"profile {tier} Q={n_q}: no device time in the trace "
+                f"(busy share not measured)")
+            continue
+        log(f"profile {tier} Q={n_q}: wall {wall_us / 1e3:.3f} ms, "
+            f"device busy {busy / 1e3:.3f} ms, idle share "
+            f"{1 - busy / wall_us:.3f}; top: " + "; ".join(
+                f"{e.key[:40]} {dev_us(e) / 1e3:.3f} ms" for e in top))
 
 
-def kernel_cases_from_index(eng, queries):
+def kernel_cases_from_index(idx, queries):
     import torch
     from repro_torch.core import executor
-    idx = eng.index
     cases = []
     for n_q in (1, 32, 512):
         q = torch.from_numpy(queries[:n_q]).cuda()
@@ -811,39 +875,75 @@ def kernel_cases_from_index(eng, queries):
     return cases
 
 
+def timed_kernels(idx, queries):
+    """Phase 4 over a built index: every kernel checked and timed at the
+    main path's shapes."""
+    t0 = time.perf_counter()
+    batch = idx.vectors[idx.valid][:4096].contiguous()
+    kidx = dict(vectors=idx.vectors, valid=idx.valid, ids=idx.ids,
+                codes=idx.codes, lo=idx.qstats.lo, scale=idx.qstats.scale,
+                norms=idx.code_norms, centroids=idx.centroids)
+    res = check_kernels(kidx, kernel_cases_from_index(idx, queries), batch,
+                        timed=True)
+    log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def kernels_line(res, launches):
+    kernels = []
+    for kname, r in res.items():
+        extra = {k: r[k] for k in ("device_ms", "exact") if k in r}
+        kernels.append(dict(
+            name=kname, **KERNEL_META[kname], launches=launches[kname],
+            max_abs_err=r["max_abs_err"], ids_equal=r["ids_equal"],
+            ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], shape=r["shape"], **extra))
+    return kernels
+
+
+def kernels_only():
+    """Phase 4 alone, on the main path's data and index configuration
+    built in memory (no SQLite store): quick kernel times at the main
+    path's shapes, for any tree's src/ (--src)."""
+    import numpy as np
+    from repro_torch.core import ivf
+    from repro_torch.core.types import IVFConfig
+    from repro_torch.data import synthetic
+    t0 = time.perf_counter()
+    ds = synthetic.make("sift", scale=1.0, with_gt=False, seed=0)
+    n, d = ds.X.shape
+    rng = np.random.default_rng(0)
+    attrs = np.stack([rng.integers(0, 10, n).astype(np.float32),
+                      rng.random(n).astype(np.float32)], axis=1)
+    idx = ivf.build_index(ds.X, np.arange(n, dtype=np.int32), attrs,
+                          cfg=IVFConfig(dim=d, quantize="int8",
+                                        rerank_factor=4))
+    log(f"phase index: {time.perf_counter() - t0:.1f} s  k={idx.k} "
+        f"p_max={idx.p_max}")
+    res = timed_kernels(idx, ds.Q)
+    print(json.dumps({"kernels": kernels_line(
+        res, {k: None for k in res})}), flush=True)
+
+
 def run(args):
-    import torch
     name, count, card = device_info()
     t_all = time.perf_counter()
     build_kernels()
     if args.quick:
         quick()
         return
+    if args.kernels_only:
+        kernels_only()
+        return
     t0 = time.perf_counter()
     eng, queries, out = main_path()
     log(f"phase main: {time.perf_counter() - t0:.1f} s")
     profile_queries(eng, queries)
-    t0 = time.perf_counter()
-    idx = eng.index
-    batch = idx.vectors[idx.valid][:4096].contiguous()
-    kidx = dict(vectors=idx.vectors, valid=idx.valid, ids=idx.ids,
-                codes=idx.codes, lo=idx.qstats.lo, scale=idx.qstats.scale,
-                norms=idx.code_norms, centroids=idx.centroids)
-    res = check_kernels(kidx, kernel_cases_from_index(eng, queries), batch,
-                        timed=True)
-    log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+    res = timed_kernels(eng.index, queries)
     eng.close()
     shutil.rmtree(WORK, ignore_errors=True)
-    kernels = []
-    for kname, r in res.items():
-        kernels.append(dict(
-            name=kname, **KERNEL_META[kname],
-            launches=out["launches"][kname],
-            max_abs_err=r["max_abs_err"], ids_equal=r["ids_equal"],
-            ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=r["shape"],
-            **({"device_ms": r["device_ms"]} if "device_ms" in r else {})))
+    kernels = kernels_line(res, out["launches"])
     log(json.dumps({"main": {k: v for k, v in out.items()
                              if k != "launches"}}))
     log(f"phase total: {time.perf_counter() - t_all:.1f} s")
@@ -857,12 +957,18 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and check each kernel once, then stop")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="check and time the kernels on an index built in "
+                         "memory (no SQLite), print the kernels line, stop")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the src/ directory whose repro_torch is driven "
+                         "(another tree's, to compare two versions in one "
+                         "run)")
     args = ap.parse_args()
-    if not (SRC / "repro_torch" / "__init__.py").exists():
-        print("FAIL: src/repro_torch not found beside chip_smoke.py",
-              flush=True)
+    if not (args.src / "repro_torch" / "__init__.py").exists():
+        print(f"FAIL: {args.src}/repro_torch not found", flush=True)
         return 1
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(args.src.resolve()))
     try:
         run(args)
     except SmokeFailure as e:

@@ -34,7 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # are c_void_p (a bare int would be cut to 32 bits), every size c_int.
 SIGNATURES = {
     "ivf_scan": ("ivf_scan_launch",
-                 [_P] * 7 + [_I] * 10 + [_P] * 5),
+                 [_P] * 7 + [_I] * 8 + [_P] * 8),
     "sq_scan": ("sq_scan_launch",
                 [_P] * 12 + [_I] * 7 + [_P] * 7),
     "kmeans_assign": ("kmeans_assign_launch",

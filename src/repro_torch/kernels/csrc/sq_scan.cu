@@ -31,7 +31,7 @@
 // only the rows that hold work and sorting only the keys that can win.
 //
 // The design, against each cost of a plain (query, chunk) walk:
-// - Finding the selected pairs: a tiny first kernel (sq_pair_list)
+// - Finding the selected pairs: a tiny first kernel (scan_pair_list)
 //   compacts each query's row of `qsel` into a list of its selected probe
 //   positions, and pass 1's block (chunk c, query q) takes an equal share
 //   of that list -- blocks own selected pairs, not ranges of the union.
@@ -60,8 +60,6 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
 constexpr int GROUP = 32;           // slots a warp examines per item
 constexpr int ITEMS_PER_WARP = 8;   // items per warp between flush checks
 // the most keys one round of items can add
@@ -69,7 +67,6 @@ constexpr int ROUND_MAX = NWARPS * ITEMS_PER_WARP * GROUP;
 constexpr int CAP = 4096;           // candidate buffer (power of two)
 constexpr int PAIR_BATCH = 64;      // pairs staged in shared memory at once
 constexpr int ROWS = GROUP / 4;     // rows of a group per 8-lane team
-constexpr unsigned FULL = 0xffffffffu;
 
 // Slot rsel + 4 h of a group is a row to scan (bit set in the ballot m).
 __device__ __forceinline__ bool row_in(unsigned m, int rsel, int h) {
@@ -97,88 +94,6 @@ __device__ __forceinline__ void dot_word(int cw, int xw, int yw, int e,
       v2 = fmaf_decode((int)(int8_t)(cw >> (8 * h)), scs[e + h], los[e + h],
                        v2);
   }
-}
-
-// Each query's selected probe positions, in increasing order: pairs
-// [n_q, n] (first pair_cnt[q] entries valid). One block per query; 256
-// threads take 4 positions each per 1,024-position tile, and a block scan
-// orders their writes.
-__global__ void __launch_bounds__(THREADS)
-sq_pair_list(const int8_t* __restrict__ qsel, int n,
-             int32_t* __restrict__ pairs, int32_t* __restrict__ pair_cnt) {
-  __shared__ int wsum[NWARPS];
-  const int q = blockIdx.x;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int8_t* row = qsel + (size_t)q * n;
-  int32_t* out = pairs + (size_t)q * n;
-  int base = 0;
-  for (int t0 = 0; t0 < n; t0 += 4 * THREADS) {
-    const int e0 = t0 + 4 * threadIdx.x;
-    bool f[4];
-    int c = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      f[b] = (e0 + b < n) && row[e0 + b] != 0;
-      c += f[b];
-    }
-    int x = c;   // inclusive warp scan
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(FULL, x, off);
-      if (lane >= off) x += y;
-    }
-    if (lane == 31) wsum[w] = x;
-    __syncthreads();
-    int before = 0, tot = 0;
-#pragma unroll
-    for (int i = 0; i < NWARPS; ++i) {
-      before += (i < w) ? wsum[i] : 0;
-      tot += wsum[i];
-    }
-    int pos = base + before + x - c;
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      if (f[b]) out[pos++] = e0 + b;
-    base += tot;
-    __syncthreads();   // wsum is rewritten by the next tile
-  }
-  if (threadIdx.x == 0) pair_cnt[q] = base;
-}
-
-// Ascending sort of the first m (<= 32) keys of a[] in one warp's
-// registers (bitonic over shuffles); entries [m, 32) are not written.
-__device__ __forceinline__ void warp_sort32(uint64_t* a, int m) {
-  const int lane = threadIdx.x & 31;
-  uint64_t key = lane < m ? a[lane] : EMPTY_KEY;
-#pragma unroll
-  for (int k = 2; k <= 32; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const uint64_t other = __shfl_xor_sync(FULL, key, j);
-      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
-      key = keep_min ? (other < key ? other : key)
-                     : (other > key ? other : key);
-    }
-  }
-  if (lane < m) a[lane] = key;
-}
-
-// Sort cand[0..m) and merge it into the running list run[0..r) (into tmp,
-// then swapped). Every thread calls it; returns the new length.
-__device__ int flush_candidates(uint64_t*& run, uint64_t*& tmp, int r,
-                                uint64_t* cand, int m, int k_out) {
-  if (m <= 32) {
-    if (threadIdx.x < 32) warp_sort32(cand, m);
-    __syncthreads();
-  } else {
-    int p = 64;
-    while (p < m) p <<= 1;
-    for (int t = m + threadIdx.x; t < p; t += THREADS) cand[t] = EMPTY_KEY;
-    block_bitonic_sort(cand, p);    // syncs before and after
-  }
-  r = block_merge(run, r, cand, m, tmp, k_out);   // syncs after
-  uint64_t* sw = run; run = tmp; tmp = sw;
-  return r;
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
@@ -409,7 +324,7 @@ extern "C" int sq_scan_launch(const void* q_i8, const void* alpha,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (qsel != nullptr) {
-    sq_pair_list<<<n_q, THREADS, 0, st>>>(
+    scan_pair_list<<<n_q, THREADS, 0, st>>>(
         static_cast<const int8_t*>(qsel), n, static_cast<int32_t*>(pairs),
         static_cast<int32_t*>(pair_cnt));
     err = cudaGetLastError();
@@ -433,12 +348,12 @@ extern "C" int sq_scan_launch(const void* q_i8, const void* alpha,
       static_cast<int32_t*>(part_cnt));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem2 = pass2_smem_bytes(k_out);
+  const size_t smem2 = pass2_smem_bytes(k_out, n_chunks);
   err = allow_smem(topk_merge_pass2, smem2);
   if (err != cudaSuccess) return (int)err;
   topk_merge_pass2<<<n_q, THREADS, smem2, st>>>(
       static_cast<const uint64_t*>(part_keys),
-      static_cast<const int32_t*>(part_cnt), n_chunks, k_out,
+      static_cast<const int32_t*>(part_cnt), n_chunks, k_out, nullptr,
       static_cast<const int32_t*>(ids), static_cast<const int32_t*>(part_ids),
       p_max, static_cast<float*>(out_s), static_cast<int32_t*>(out_i));
   return (int)cudaGetLastError();

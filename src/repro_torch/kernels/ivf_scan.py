@@ -18,6 +18,9 @@ from . import build, common
 from .ref import ivf_scan_ref as ivf_scan_plain
 
 LAUNCHES = 0
+# Most queries a block scores each row against on the exact route (no
+# qsel): rows are read once per group of queries, not once per query.
+MAX_GROUP = 8
 
 
 def ivf_scan_topk(
@@ -42,6 +45,17 @@ def ivf_scan_topk(
                    qsel, keep)
 
 
+def query_group(n_q: int, qsel) -> int:
+    """Queries per block: 1 with a selection (each query reads only its
+    own pairs), else the power of two covering n_q, at most MAX_GROUP."""
+    if qsel is not None:
+        return 1
+    g = 1
+    while g < min(n_q, MAX_GROUP):
+        g *= 2
+    return g
+
+
 def _launch(queries, vectors, valid, ids, part_ids, k_out, metric, qsel,
             keep):
     global LAUNCHES
@@ -56,29 +70,42 @@ def _launch(queries, vectors, valid, ids, part_ids, k_out, metric, qsel,
     common.require_shape("ivf_scan", (kp, p_max), valid=valid, ids=ids,
                          keep=keep)
     common.require_shape("ivf_scan", (n_q, n), qsel=qsel)
-    out_s = torch.full((n_q, k_out), MASKED_SCORE, dtype=torch.float32,
-                       device=dev)
-    out_i = torch.full((n_q, k_out), -1, dtype=torch.int32, device=dev)
     if n_q == 0 or n == 0 or k_out == 0:
-        return out_s, out_i
-    n_chunks, chunk, tile = common.scan_plan(n_q, n, p_max, k_out, d, dev)
-    q = common.as_dtype(queries, torch.float32)
-    vec = common.as_dtype(vectors, torch.float32)
-    val = common.as_dtype(valid, torch.int8)
-    kp_ = common.as_dtype(keep, torch.int8)
-    idv = common.as_dtype(ids, torch.int32)
-    pid = common.as_dtype(part_ids, torch.int32)
-    qs = common.as_dtype(qsel, torch.int8)
-    part_keys = torch.empty((n_q, n_chunks, k_out), dtype=torch.int64,
-                            device=dev)
-    part_cnt = torch.empty((n_q, n_chunks), dtype=torch.int32, device=dev)
-    lib = build.load("ivf_scan")
-    rc = lib.ivf_scan_launch(
-        common.ptr(q), common.ptr(vec), common.ptr(val), common.ptr(kp_),
-        common.ptr(idv), common.ptr(pid), common.ptr(qs),
-        n_q, d, p_max, n, chunk, n_chunks, k_out, int(metric == "l2"),
-        tile, common.THREADS, common.ptr(part_keys), common.ptr(part_cnt),
-        common.ptr(out_s), common.ptr(out_i), common.stream_ptr(dev))
+        return (torch.full((n_q, k_out), MASKED_SCORE, dtype=torch.float32,
+                           device=dev),
+                torch.full((n_q, k_out), -1, dtype=torch.int32, device=dev))
+    group = query_group(n_q, qsel)
+    n_chunks = common.scan_plan(n_q, n, p_max, common.sm_count(dev), group)
+    # pass 2 writes every output entry, the (MASKED, -1) tail included
+    out_s = torch.empty((n_q, k_out), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_q, k_out), dtype=torch.int32, device=dev)
+    ins = [common.as_dtype(queries, torch.float32),
+           common.as_dtype(vectors, torch.float32),
+           common.as_dtype(valid, torch.int8),
+           common.as_dtype(keep, torch.int8),
+           common.as_dtype(ids, torch.int32),
+           common.as_dtype(part_ids, torch.int32),
+           common.as_dtype(qsel, torch.int8)]
+    # scratch in two allocations (host work per call is what small batches
+    # feel): int32 part_cnt [n_q, n_chunks], then with qsel the pair lists
+    # [n_q, n] and their counts [n_q]; int64 part_keys [n_q, n_chunks,
+    # k_out], then with more than one chunk each query's published k-th
+    n_pairs = n_q * (n + 1) if qsel is not None else 0
+    i32 = torch.empty((n_q * n_chunks + n_pairs,), dtype=torch.int32,
+                      device=dev)
+    n_limits = n_q if n_chunks > 1 else 0
+    i64 = torch.empty((n_q * n_chunks * k_out + n_limits,),
+                      dtype=torch.int64, device=dev)
+    part_cnt = i32.data_ptr()
+    pairs = part_cnt + 4 * n_q * n_chunks if qsel is not None else None
+    pair_cnt = pairs + 4 * n_q * n if qsel is not None else None
+    part_keys = i64.data_ptr()
+    limits = part_keys + 8 * n_q * n_chunks * k_out
+    rc = build.load("ivf_scan").ivf_scan_launch(
+        *[common.ptr(t) for t in ins], n_q, d, p_max, n, n_chunks, k_out,
+        int(metric == "l2"), group, pairs, pair_cnt, limits, part_keys,
+        part_cnt, common.ptr(out_s), common.ptr(out_i),
+        common.stream_ptr(dev))
     build.check_launch("ivf_scan", rc)
     LAUNCHES += 1
     return out_s, out_i

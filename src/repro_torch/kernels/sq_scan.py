@@ -80,10 +80,7 @@ def _launch(q_i8, alpha, beta, lo, scale, codes, valid, ids, part_ids,
         return (torch.full((n_q, k_out), MASKED_SCORE, dtype=torch.float32,
                            device=dev),
                 torch.full((n_q, k_out), -1, dtype=torch.int32, device=dev))
-    if n * p_max >= 2 ** 31:
-        raise ValueError("probe list too long: n * p_max must stay below "
-                         "2^31 positions")
-    n_chunks = common.sq_scan_plan(n_q, n, dev)
+    n_chunks = common.scan_plan(n_q, n, p_max, common.sm_count(dev))
     # pass 2 writes every output entry, the (MASKED, -1) tail included
     out_s = torch.empty((n_q, k_out), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_q, k_out), dtype=torch.int32, device=dev)

@@ -23,7 +23,7 @@ from repro.kernels import sq_scan as jsq
 from repro_torch.core import quantize
 from repro_torch.core.hybrid import Pred, compile_filter
 from repro_torch.core.types import QuantStats
-from repro_torch.kernels import ivf_scan, kmeans_assign, sq_scan
+from repro_torch.kernels import common, ivf_scan, kmeans_assign, sq_scan
 from repro_torch.testing import compare_topk, score_tol
 
 MASKED = float(np.finfo(np.float32).max)
@@ -238,3 +238,42 @@ def test_kmeans_assign_plain_matches_pallas(balance_weight, k):
     cost = ((x64[:, None, :] - c64[None]) ** 2).sum(-1) + pen[None]
     rows = np.arange(len(batch))
     assert (np.abs(cost[rows, a_j] - cost[rows, a_t]) <= tol).all()
+
+
+# The scan plan on an H100 (132 SMs): about two blocks per SM, shared out
+# over each query's probe positions (or over groups of up to 8 queries
+# without a selection). The main path's shapes: 8 probes at Q = 1 and 32,
+# the exact scan of 10,000 partitions at Q = 8, 4,096 union positions at
+# Q = 512.
+@pytest.mark.parametrize("n_q,n,group,chunks", [
+    (1, 8, 1, 8),            # one selected pair per block
+    (8, 10000, 8, 264),      # exact, one group of 8 queries
+    (8, 10000, 1, 33),       # exact without row sharing
+    (32, 256, 1, 8),
+    (512, 4096, 1, 1),       # one block per query: pass 2 is a copy
+    (512, 10000, 8, 4),
+    (1000, 50, 1, 1),        # more queries than blocks at once
+    (3, 2, 4, 2),            # never more chunks than positions
+])
+def test_scan_plan_chunks(n_q, n, group, chunks):
+    assert common.scan_plan(n_q, n, 568, 132, group) == chunks
+
+
+@pytest.mark.parametrize("n_q,n,p_max", [
+    (65536, 8, 568),                  # above the grid's y limit
+    (1, 2 ** 31 // 568 + 1, 568),     # positions overflow int32
+])
+def test_scan_plan_limits(n_q, n, p_max):
+    with pytest.raises(ValueError):
+        common.scan_plan(n_q, n, p_max, 132)
+    common.scan_plan(min(n_q, 65535), min(n, (2 ** 31 - 1) // p_max), p_max,
+                     132)
+
+
+@pytest.mark.parametrize("n_q,with_qsel,group", [
+    (1, False, 1), (3, False, 4), (8, False, 8), (512, False, 8),
+    (8, True, 1), (512, True, 1)])
+def test_query_group(n_q, with_qsel, group):
+    # rows are shared across queries only on the exact route (no qsel)
+    qsel = np.ones((n_q, 4), bool) if with_qsel else None
+    assert ivf_scan.query_group(n_q, qsel) == group

@@ -21,7 +21,7 @@ import torch
 from repro_torch.core import executor, ivf, quantize, query
 from repro_torch.core.hybrid import Pred, compile_filter
 from repro_torch.core.types import IVFConfig
-from repro_torch.kernels import ivf_scan, kmeans_assign, ops, sq_scan
+from repro_torch.kernels import common, ivf_scan, kmeans_assign, ops, sq_scan
 from repro_torch.storage.engine import MicroNN
 from repro_torch.testing import compare_topk, score_tol
 
@@ -206,11 +206,21 @@ def test_kmeans_assign_kernel_duplicate_centroids_first_index(cuda):
     _check_assign(batch, cents, zero, a_k, c_k, agree=0.0)
 
 
-def _sq_case(dev, case):
-    """Inputs of one sq_scan edge case -> (x, k_out, qsel, keep)."""
+def _assert_no_repeats(ids):
+    """No id twice in a row, and -1 only in the tail."""
+    for row in ids:
+        r = row[row >= 0]
+        assert len(set(r.tolist())) == len(r)
+        assert (row[len(r):] == -1).all()
+
+
+def _scan_case(dev, case):
+    """Inputs of one scan edge case -> (x, k_out, qsel, keep)."""
     kw = {}
     if case == "k400_pmax568":
         kw = dict(kp=300, p_max=568, d=128, n_q=32, n_probe=8, p_valid=0.25)
+    elif case.startswith("d960"):
+        kw = dict(kp=40, p_max=96, d=960, n_q=12, n_probe=4)
     x = _inputs(dev, seed=11, **kw)
     qsel, keep, k_out = x["qsel"], None, 120
     if case == "holes":
@@ -228,7 +238,7 @@ def _sq_case(dev, case):
         x["valid"] &= (torch.rand(x["valid"].shape, generator=g) < 0.02
                        ).to(dev)
         k_out = 700
-    elif case == "exact":
+    elif case in ("exact", "d960_exact"):
         qsel = None
     elif case == "keep":
         keep = compile_filter(Pred(0, ">=", 2))(x["attrs"])
@@ -242,7 +252,7 @@ def _sq_case(dev, case):
 def test_sq_scan_kernel_cases(cuda, case):
     # each case on both routes: precomputed norms (bit for bit) and the
     # in-scan decode (within tolerance)
-    x, k_out, qsel, keep = _sq_case(cuda, case)
+    x, k_out, qsel, keep = _scan_case(cuda, case)
     d = x["vec"].shape[-1]
     st = quantize.train(x["vec"].reshape(-1, d))
     codes = quantize.encode(st, x["vec"])
@@ -256,12 +266,60 @@ def test_sq_scan_kernel_cases(cuda, case):
         if norms is not None:
             assert err == 0.0
         ids = got[1].cpu().numpy()
-        for row in ids:                       # no repeats, -1 only last
-            r = row[row >= 0]
-            assert len(set(r.tolist())) == len(r)
-            assert (row[len(r):] == -1).all()
+        _assert_no_repeats(ids)
         if case == "empty_qsel_row":
             assert (ids[0] == -1).all() and (ids[5] == -1).all()
+
+
+# K2's case set, plus the paper's GIST width (960) with and without qsel
+@pytest.mark.parametrize("case", ["holes", "empty_qsel_row", "k_above_rows",
+                                  "exact", "keep", "k400_pmax568", "d960",
+                                  "d960_exact"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_ivf_scan_kernel_cases(cuda, case, metric):
+    x, k_out, qsel, keep = _scan_case(cuda, case)
+    args = (x["q"], x["vec"], x["valid"], x["ids"], x["union"], k_out,
+            metric, qsel, keep)
+    got = ivf_scan.ivf_scan_topk(*args[:6], metric=metric, qsel=qsel,
+                                 keep=keep)
+    _same(ivf_scan.ivf_scan_plain(*args), got, _tol(x))
+    ids = got[1].cpu().numpy()
+    _assert_no_repeats(ids)
+    if case == "empty_qsel_row":
+        assert (ids[0] == -1).all() and (ids[5] == -1).all()
+
+
+@pytest.mark.parametrize("route", ["ann", "exact"])
+def test_ivf_scan_kernel_solo_equals_batched_bitwise(cuda, route,
+                                                     monkeypatch):
+    # the port contract "coalesced == solo bitwise": a row's score does not
+    # depend on the batch, the chunking or the query group, so a query's
+    # scores and ids are bit-identical alone, inside a batch of 32, and
+    # under plans with other chunk counts (and, exact, with query groups of
+    # 1, 2 and 4 instead of 8)
+    x = _inputs(cuda, seed=21, n_q=32, n_probe=8)
+    qsel = x["qsel"] if route == "ann" else None
+
+    def scan(rows):
+        sel = None if qsel is None else qsel[rows]
+        return ivf_scan.ivf_scan_topk(x["q"][rows], x["vec"], x["valid"],
+                                      x["ids"], x["union"], 60, qsel=sel)
+    whole = scan(slice(0, 32))
+    torch.cuda.synchronize()
+    for i in (0, 7, 31):
+        solo = scan(slice(i, i + 1))
+        assert torch.equal(solo[0], whole[0][i:i + 1])
+        assert torch.equal(solo[1], whole[1][i:i + 1])
+    variants = [("scan_plan", common, lambda *a, **k: 1),
+                ("scan_plan", common, lambda *a, **k: 5)]
+    if route == "exact":
+        variants += [("MAX_GROUP", ivf_scan, g) for g in (1, 2, 4)]
+    for attr, owner, value in variants:
+        with monkeypatch.context() as mp:
+            mp.setattr(owner, attr, value)
+            got = scan(slice(0, 32))
+        assert torch.equal(got[0], whole[0]), (attr, value)
+        assert torch.equal(got[1], whole[1]), (attr, value)
 
 
 def _to(index, dev):

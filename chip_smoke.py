@@ -15,16 +15,30 @@ Phases (any failure exits non-zero and prints no result line):
                  SQLite, build() with the int8 tier (rerank_factor=4),
                  queries at Q in {1, 32, 512} on the int8 and f32 tiers,
                  exact queries, a post-filter query, upserts, a delete and
-                 a recover() into a second engine. Every kernel launch
-                 counter is zeroed just before and read just after; each
-                 must be > 0. Recall is held against a brute-force oracle
-                 on the card.
+                 a recover() into a second engine. Recall is held against
+                 a brute-force oracle on the card.
+     hybrid   -- (inside main, before the writes) the optimizer on the
+                 resident engine: a selective predicate resolves to the
+                 pre-filter plan (K1 over the gathered rows; recall@100 =
+                 1.000 against a filtered brute force), a broad one to the
+                 post-filter plan.
+     paged    -- (after recover) the disk-resident mode on the same file:
+                 an int8 pool and an f32 pool of memory_budget_mb=10 answer
+                 like the recovered resident engine, bit for bit; paged
+                 exact on the int8 pool; the pool never exceeds the budget.
+     paged build -- a paged build (int8, 10 MiB) of the first 100,000 rows
+                 into a fresh file: streamed from SQLite, its final
+                 assignment through K3.
+     Each path's kernel launch counters are zeroed just before it and read
+     just after; every kernel the path runs must show launches.
   4. kernels  -- each kernel against its plain PyTorch version on the card
                  at the main path's shapes plus edge cases, then timed with
                  CUDA events beside the plain version and a PyTorch
                  yardstick (library_ms), with its roofline bound, and as
                  their kernels' device time in a profiler trace; K1 on the
-                 exact route also without row sharing, bit for bit.
+                 exact route also without row sharing, bit for bit. Then K1
+                 on the pre-filter plan's gathered rows and K1 / K2 over a
+                 chunk of the paged frame pools.
   5. result   -- one JSON line of kernels, the card's name and power limit,
                  and the contract line {"ok": true, "device": {...}}.
 """
@@ -774,6 +788,12 @@ def main_path():
     for k_, v_ in lat.items():
         log(f"latency {k_}: {v_:.3f}")
 
+    # the hybrid path is read on its own: counts so far belong to main
+    main_counts = ops.launch_counts()
+    out["hybrid"] = hybrid_phase(eng, queries, attrs, Xg, x2, qg, v2_max,
+                                 pf_ids)
+    ops.reset_launch_counts()
+
     # -- writes: upserts visible at once, a delete gone at once --------------
     new_ids = np.arange(n, n + 8, dtype=np.int64)
     new_vecs = (rng.normal(size=(8, d)) * 4 + 40).astype(np.float32)
@@ -807,7 +827,8 @@ def main_path():
         f"(max score diff {err:.3e})")
     check(same, "the recovered engine answers differently")
 
-    counts = ops.launch_counts()
+    counts = {k_: c + main_counts[k_]
+              for k_, c in ops.launch_counts().items()}
     torch.cuda.synchronize()
     out["launches"] = counts
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
@@ -818,46 +839,325 @@ def main_path():
         f"p_max={idx.p_max} k={idx.k}")
     out.update(recall=rec, exact_recall=r_ex, swaps=swaps, latency_ms=lat,
                p_max=idx.p_max, k=idx.k)
-    eng2.close()
-    return eng, queries, out
+    ctx = dict(eng=eng, eng2=eng2, db=db, X=X, attrs=attrs, queries=queries,
+               Xg=Xg, x2=x2, qg=qg, gt=gt, v2_max=v2_max)
+    return ctx, out
+
+
+def filtered_oracle(Xg, x2, q, keep, k):
+    """Brute-force top-k ids over the rows where `keep` (host bool) holds,
+    on the card: the pre-filter plan's ground truth."""
+    import numpy as np
+    import torch
+    from repro_torch.core.types import f32_matmul
+    sel = torch.from_numpy(np.nonzero(keep)[0]).cuda()
+    d2 = x2[sel][None, :] - 2.0 * f32_matmul(q, Xg[sel].T)
+    return sel[torch.topk(d2, min(k, sel.numel()), dim=1,
+                          largest=False).indices]
+
+
+def hybrid_phase(eng, queries, attrs, Xg, x2, qg, v2_max, pf_ids):
+    """The optimizer on the resident 1M engine: a selective predicate
+    (about 500 rows) resolves to the pre-filter plan, whose K1 scan over
+    the gathered rows must reach recall@100 = 1.000 against a filtered
+    brute force; a broad one resolves to the post-filter plan and returns
+    the explicit post-filter query's ids."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hybrid import Pred
+    from repro_torch.core.query import Q as QB
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    out = {}
+    sel_pred = Pred(1, "<", 0.0005)
+    dec = eng.optimizer.choose(eng.index, sel_pred, 8)
+    n_ok = int((attrs[:, 1] < 0.0005).sum())
+    log(f"hybrid: attr1 < 0.0005 holds on {n_ok} rows; decision "
+        f"{dec.plan}, f_filters={dec.f_filters:.6g}, f_ivf={dec.f_ivf:.6g}, "
+        f"cap={dec.prefilter_cap}")
+    check(dec.plan == "pre", "the selective predicate did not resolve to "
+          "the pre-filter plan")
+    spec = QB.knn(k=100, n_probe=8).where(sel_pred)
+    rs, ms = timed_query(eng, queries[:32], spec)
+    ids = rs.to_numpy()[0]
+    got = ids[ids >= 0]
+    check(ids.shape == (32, 100) and got.size > 0, "pre-filter result shape")
+    check((attrs[got, 1] < 0.0005).all(),
+          "a pre-filter hit breaks the predicate")
+    gt = filtered_oracle(Xg, x2, qg[:32], attrs[:, 1] < 0.0005, 100)
+    r_pre, swaps = exact_recall(Xg, qg[:32],
+                                torch.as_tensor(ids).cuda(), gt, v2_max)
+    log(f"hybrid pre-filter Q=32: {ms:.3f} ms, recall@100 {r_pre:.4f} "
+        f"(boundary swaps within tolerance: {swaps})")
+    check(r_pre == 1.0, "pre-filter recall@100 is not 1.000")
+    broad = Pred(0, "==", 3)
+    dec_b = eng.optimizer.choose(eng.index, broad, 8)
+    log(f"hybrid: attr0 == 3 decision {dec_b.plan}, "
+        f"f_filters={dec_b.f_filters:.6g}, f_ivf={dec_b.f_ivf:.6g}")
+    check(dec_b.plan == "post", "the broad predicate did not resolve to "
+          "the post-filter plan")
+    rs_b, ms_b = timed_query(eng, queries[:32],
+                             QB.knn(k=100, n_probe=8).where(broad))
+    check(np.array_equal(rs_b.to_numpy()[0], pf_ids),
+          "auto did not return the explicit post-filter query's ids")
+    counts = ops.launch_counts()
+    log(f"hybrid post-filter (auto) Q=32: {ms_b:.3f} ms, ids equal to the "
+        f"explicit post-filter query; launches on the hybrid path: {counts}")
+    check(counts["ivf_scan_topk"] > 0,
+          "ivf_scan_topk was not launched on the pre-filter path")
+    out.update(decision=dec.plan, f_filters=dec.f_filters, f_ivf=dec.f_ivf,
+               cap=dec.prefilter_cap, qualifying_rows=n_ok,
+               recall=r_pre, swaps=swaps, pre_Q32_ms=ms, post_Q32_ms=ms_b,
+               launches=counts, seconds=time.perf_counter() - t0)
+    log(f"phase hybrid: {out['seconds']:.2f} s")
+    return out
+
+
+PAGED_BUDGET_MB = 10
+
+
+def paged_phase(ctx):
+    """The disk-resident mode on the main path's file, after recover: an
+    int8 pool and an f32 pool of PAGED_BUDGET_MB each answer like the
+    recovered resident engine (eng2), ids equal and scores bit for bit;
+    paged exact on the int8 pool; the pool's bytes stay within the
+    budget. The resident answers are taken before the counters are
+    zeroed, so the counts are the paged path's own."""
+    import numpy as np
+    import torch
+    from repro_torch.core.query import Q as QB
+    from repro_torch.kernels import ops
+    from repro_torch.storage.engine import MicroNN
+    t_phase = time.perf_counter()
+    eng2, queries, db = ctx["eng2"], ctx["queries"], ctx["db"]
+    d = queries.shape[1]
+    budget = PAGED_BUDGET_MB * 2 ** 20
+    knn = QB.knn(k=100, n_probe=8)
+    knn_f32 = knn.quantized(False)
+    ref = {("int8", nq): eng2.query(queries[:nq], knn).to_numpy()
+           for nq in (1, 32, 512)}
+    ref.update({("f32", nq): eng2.query(queries[:nq], knn_f32).to_numpy()
+                for nq in (1, 32)})
+    torch.cuda.synchronize()
+    out = {"batches": []}
+    ops.reset_launch_counts()
+    pools = {}
+    for tier, quant, specq, sizes in (("int8", "int8", knn, (1, 32, 512)),
+                                      ("f32", None, knn_f32, (1, 32))):
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pag = MicroNN(dim=d, n_attr=2, path=str(db), quantize=quant,
+                      rerank_factor=4, memory_budget_mb=PAGED_BUDGET_MB)
+        pag.recover()
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated() - mem0
+        c = pag.index.cache
+        log(f"paged {tier}: recover {rec_s:.2f} s; pool {c.capacity} frames "
+            f"of {c.frame_bytes} B (p_max {c.p_max}) of {pag.index.k} "
+            f"partitions, {c.resident_bytes} B resident of a {budget} B "
+            f"budget; device memory the engine holds {held} B")
+        check(c.resident_bytes <= budget, "the frame pool exceeds its budget")
+        out[tier] = dict(recover_s=rec_s, frames=c.capacity,
+                         frame_bytes=c.frame_bytes, p_max=c.p_max,
+                         resident_bytes=c.resident_bytes,
+                         device_bytes_held=held)
+        for nq in sizes:
+            for rep in ("cold", "warm"):
+                s0 = pag.stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rs = pag.query(queries[:nq], specq)
+                ids, sc = rs.to_numpy()
+                ms = (time.perf_counter() - t0) * 1e3
+                s1 = pag.stats()
+                row = dict(tier=tier, Q=nq, rep=rep, ms=ms, **{
+                    k_: s1[k_] - s0[k_] for k_ in
+                    ("hits", "misses", "evictions", "bytes_read",
+                     "bytes_staged")}, resident_bytes=s1["resident_bytes"])
+                out["batches"].append(row)
+                log(f"paged {tier} Q={nq} {rep}: {ms:.2f} ms, hits "
+                    f"{row['hits']}, misses {row['misses']}, evictions "
+                    f"{row['evictions']}, bytes read {row['bytes_read']} "
+                    f"(+{row['bytes_staged']} staged), resident "
+                    f"{row['resident_bytes']} B")
+                check(s1["resident_bytes"] <= budget,
+                      "the frame pool exceeds its budget")
+                r_ids, r_sc = ref[(tier, nq)]
+                check(np.array_equal(ids, r_ids),
+                      f"paged {tier} Q={nq}: ids differ from resident")
+                check(np.array_equal(sc, r_sc),
+                      f"paged {tier} Q={nq}: scores differ from resident "
+                      f"(max {np.abs(sc - r_sc).max():.3e})")
+        log(f"paged {tier}: ids and scores equal to the resident engine's, "
+            f"bit for bit, at Q={sizes}")
+        pools[tier] = pag
+    # paged exact on the int8 pool: a full-probe code scan + rerank
+    pag = pools["int8"]
+    t0 = time.perf_counter()
+    rs = pag.query(queries[:8], QB.exact(k=100))
+    ex_ids = rs.to_numpy()[0]
+    ms = (time.perf_counter() - t0) * 1e3
+    r_ex, _ = exact_recall(ctx["Xg"], ctx["qg"][:8],
+                           torch.as_tensor(ex_ids).cuda(), ctx["gt"][:8],
+                           ctx["v2_max"])
+    r_ann = recall(ref[("int8", 512)][0][:8], ctx["gt"][:8].cpu().numpy())
+    log(f"paged exact (int8 pool) Q=8: {ms:.1f} ms, recall@100 {r_ex:.4f} "
+        f"(resident int8 n_probe 8 on the same queries: {r_ann:.4f}); "
+        f"pool stats {pag.stats()}")
+    check(r_ex >= r_ann, "paged exact recall is below the n_probe-8 recall")
+    counts = ops.launch_counts()
+    log(f"launches on the paged path: {counts}")
+    for name in ("ivf_scan_topk", "sq_scan_topk"):
+        check(counts[name] > 0, f"{name} was not launched on the paged path")
+    out.update(exact_Q8_ms=ms, exact_recall=r_ex, ann_recall_same_q=r_ann,
+               launches=counts, seconds=time.perf_counter() - t_phase)
+    log(f"phase paged: {out['seconds']:.1f} s")
+    return out, pools
+
+
+PAGED_BUILD_ROWS = 100_000
+
+
+def paged_build_phase(ctx):
+    """A paged build (int8, PAGED_BUDGET_MB) of the first PAGED_BUILD_ROWS
+    rows into a fresh file: streamed from SQLite, the final assignment
+    through K3. Cut to 100,000 rows only to bound the SQLite time (its
+    k-means samples scan the table once per iteration); d stays 128."""
+    import numpy as np
+    import torch
+    from repro_torch.core import executor, ivf, kmeans, quantize
+    from repro_torch.core.query import Q as QB
+    from repro_torch.kernels import ops
+    from repro_torch.storage.engine import MicroNN
+    from repro_torch.storage.store import VectorStore
+    t_phase = time.perf_counter()
+    n = PAGED_BUILD_ROWS
+    X, attrs, queries = ctx["X"], ctx["attrs"], ctx["queries"]
+    db = WORK / "paged100k.db"
+    _rm_db(db)
+    t0 = time.perf_counter()
+    pb = MicroNN(dim=X.shape[1], n_attr=2, path=str(db), quantize="int8",
+                 rerank_factor=4, memory_budget_mb=PAGED_BUDGET_MB)
+    pb.upsert(np.arange(n), X[:n], attrs[:n])
+    ingest_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with StepTimers([(quantize, "train_from_store"),
+                     (VectorStore, "set_code_tier_streaming"),
+                     (VectorStore, "sample"),
+                     (kmeans.MiniBatchKMeans, "fit"),
+                     (kmeans.MiniBatchKMeans, "assign"),
+                     (VectorStore, "reassign_partitions")]) as tm:
+        pb.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    log(f"paged build {n} rows: ingest {ingest_s:.1f} s, build {build_s:.1f}"
+        f" s, k={pb.index.k} p_max={pb.index.p_max}; launches on the paged "
+        f"build: {counts}")
+    tm.report("paged build")
+    check(counts["kmeans_assign"] > 0,
+          "kmeans_assign was not launched on the paged build")
+    # quality: recall against a brute force over the same rows, held to
+    # the resident in-memory build of those rows (the same configuration)
+    gt = oracle_topk(ctx["Xg"][:n], ctx["x2"][:n], ctx["qg"][:32],
+                     100).cpu().numpy()
+    knn = QB.knn(k=100, n_probe=8)
+    r = recall(pb.query(queries[:32], knn).to_numpy()[0], gt)
+    ref = ivf.build_index(X[:n], np.arange(n, dtype=np.int32), attrs[:n],
+                          cfg=pb.config, device=pb.device)
+    r_ref = recall(executor.run(ref, queries[:32], knn).to_numpy()[0], gt)
+    log(f"paged build: recall@100 n_probe 8 Q=32 over the {n} rows: "
+        f"{r:.4f} (resident in-memory build of the same rows: {r_ref:.4f})")
+    check(r >= r_ref - 0.02, "the paged build's recall@100 is more than "
+          "0.02 below the resident build's")
+    k = int(pb.index.k)
+    pb.close()
+    _rm_db(db)
+    log(f"phase paged build: {time.perf_counter() - t_phase:.1f} s")
+    return dict(rows=n, ingest_s=ingest_s, build_s=build_s,
+                kmeans_assign_s=tm.secs.get("MiniBatchKMeans.assign"),
+                steps=dict(tm.secs), recall=r, resident_recall=r_ref,
+                launches=counts, k=k)
+
+
+def profile_batch(label, run):
+    """Device busy share of one batch (`run()` runs it to the host), from
+    a torch.profiler trace: device kernel time over host wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in rows)
+    top = sorted(rows, key=dev_us, reverse=True)[:6]
+    if busy <= 0:
+        log(f"profile {label}: no device time in the trace (busy share not "
+            f"measured)")
+        return
+    log(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}; top: "
+        + "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.3f} ms" for e in top))
 
 
 def profile_queries(eng, queries):
     """Device busy share of one query batch per tier (and of the exact
-    batch), from a torch.profiler trace: device kernel time over host wall
-    time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    batch)."""
     from repro_torch.core.query import Q as QB
     int8 = QB.knn(k=100, n_probe=8)
     f32 = QB.knn(k=100, n_probe=8).quantized(False)
     for tier, spec, n_q in (("int8", int8, 1), ("int8", int8, 512),
                             ("f32", f32, 1), ("f32", f32, 512),
                             ("exact", QB.exact(k=100), 8)):
-        q = queries[:n_q]
-        eng.query(q, spec)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.query(q, spec).to_numpy()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        rows = prof.key_averages()
+        profile_batch(f"{tier} Q={n_q}", lambda: eng.query(
+            queries[:n_q], spec).to_numpy())
 
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
-        busy = sum(dev_us(e) for e in rows)
-        top = sorted(rows, key=dev_us, reverse=True)[:6]
-        if busy <= 0:
-            log(f"profile {tier} Q={n_q}: no device time in the trace "
-                f"(busy share not measured)")
-            continue
-        log(f"profile {tier} Q={n_q}: wall {wall_us / 1e3:.3f} ms, "
-            f"device busy {busy / 1e3:.3f} ms, idle share "
-            f"{1 - busy / wall_us:.3f}; top: " + "; ".join(
-                f"{e.key[:40]} {dev_us(e) / 1e3:.3f} ms" for e in top))
+
+def profile_paged(pools, queries):
+    """Where a paged batch spends its time: the device busy share of one
+    Q=32 batch on each pool, and the wall time of the fault path's steps
+    over one Q=512 batch on the int8 pool. The step timers synchronise the
+    device after each step and sum over both threads (the read-ahead
+    thread's stage() overlaps the main thread's scans), so the steps can
+    add up to more than the batch."""
+    import torch
+    from repro_torch.core import executor
+    from repro_torch.core.query import Q as QB
+    from repro_torch.fleet.pool import FramePool
+    from repro_torch.storage.pager import PartitionCache
+    from repro_torch.storage.store import VectorStore
+    knn = QB.knn(k=100, n_probe=8)
+    for tier, pag in pools.items():
+        spec = knn.quantized(tier == "int8")
+        profile_batch(f"paged {tier} Q=32", lambda: pag.query(
+            queries[:32], spec).to_numpy())
+    pag = pools["int8"]
+    with StepTimers([(FramePool, "fault"), (FramePool, "stage"),
+                     (PartitionCache, "_fetch_blocks"),
+                     (VectorStore, "scan_partitions"),
+                     (FramePool, "_write_frames"),
+                     (executor, "fused_sq_scan"), (executor, "merge_topk"),
+                     (executor, "_rerank_from_store"),
+                     (VectorStore, "vectors_for"),
+                     (executor, "_merge_epilogue")]) as tm:
+        t0 = time.perf_counter()
+        pag.query(queries[:512], knn).to_numpy()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"paged int8 Q=512 with step timers: {wall:.2f} s")
+    tm.report("paged int8 Q=512")
 
 
 def kernel_cases_from_index(idx, queries):
@@ -889,10 +1189,121 @@ def timed_kernels(idx, queries):
     return res
 
 
-def kernels_line(res, launches):
+def check_path_routes(res, ctx, pools):
+    """Phase 4 on this slice's routes: K1 on the pre-filter plan's gathered
+    rows (the exact route over virtual partitions), and K1 / K2 over the
+    first chunk of a Q=512 probe union faulted into the paged pools (frame
+    indices as the probe list, asset ids as the ids, the int8 pool's
+    norms). Each against its plain version on the same inputs, then timed
+    beside it with its bound. These launches are not counted on any
+    path."""
+    import torch
+    from repro_torch.core import executor, quantize
+    from repro_torch.core.hybrid import Pred, compile_filter
+    from repro_torch.core.types import QuantStats
+    from repro_torch.kernels import ivf_scan, sq_scan
+    t0 = time.perf_counter()
+    eng, qg, v2_max = ctx["eng"], ctx["qg"], ctx["v2_max"]
+    idx = eng.index
+    d = idx.dim
+    f = compile_filter(Pred(1, "<", 0.0005))
+    cap = eng.optimizer.choose(idx, Pred(1, "<", 0.0005), 8).prefilter_cap
+    q = qg[:32]
+    plan = executor.plan_prefilter(idx, q, 100, f, cap)
+    sub_v, sub_ok, sub_i, vpart = executor.gather_rows(idx, plan.rows)
+    k_out = min(100, sub_ok.numel())
+    tol = topk_tol(q, v2_max)
+    args = (q, sub_v, sub_ok, sub_i, vpart, k_out, "l2", None, None)
+    err, ok = compare(ivf_scan.ivf_scan_plain(*args),
+                      ivf_scan.ivf_scan_topk(*args), tol,
+                      f"ivf_scan prefilter Q=32 cap={cap}")
+    b, o = k1_bound(vpart, None, sub_ok, 32, d, idx.p_max, k_out)
+    res["ivf_scan_topk"]["prefilter"] = dict(
+        shape=f"Q=32 n={vpart.numel()} (cap {cap}) p_max={idx.p_max} "
+              f"k_out={k_out}", max_abs_err=err, ids_equal=ok,
+        ms=cuda_ms(lambda: ivf_scan.ivf_scan_topk(*args), reps=5),
+        plain_ms=cuda_ms(lambda: ivf_scan.ivf_scan_plain(*args), iters=3),
+        bound_ms=1e3 * max(b, o), bound_by="bytes" if b >= o
+        else "operations")
+    checks = [("ivf_scan_topk", err, ok)]
+    q512 = qg[:512]
+    qmask = torch.ones((q512.shape[0],), dtype=torch.bool,
+                       device=q512.device)
+    for tier, kname in (("f32", "ivf_scan_topk"), ("int8", "sq_scan_topk")):
+        pag = pools[tier]
+        cache = pag.index.cache
+        upart, qsel = executor._paged_probes(pag.index, q512, 8, qmask)
+        pids = upart[:cache.capacity]
+        frames = cache.fault(pids)
+        try:
+            fidx = torch.as_tensor(frames).cuda()
+            cq = qsel[:, :len(pids)].contiguous()
+            if tier == "f32":
+                k_out = 100
+                args = (q512, cache.payload_pool, cache.valid_pool,
+                        cache.ids_pool, fidx, k_out, "l2", cq, None)
+                kern = lambda: ivf_scan.ivf_scan_topk(*args)  # noqa: E731
+                plain = lambda: ivf_scan.ivf_scan_plain(*args)  # noqa: E731
+                b, o = k1_bound(fidx, cq, cache.valid_pool, 512, d,
+                                cache.p_max, k_out)
+            else:
+                k_out = 400
+                st = pag.index.qstats
+                q_i8, alpha, beta = quantize.fold_queries(
+                    QuantStats(lo=st.lo, scale=st.scale), q512)
+                args = (q_i8, alpha, beta, st.lo, st.scale,
+                        cache.payload_pool, cache.valid_pool, cache.ids_pool,
+                        fidx, k_out, "l2", cq, None, cache.norms_pool)
+                kern = lambda: sq_scan.sq_scan_folded(*args)  # noqa: E731
+                plain = lambda: sq_scan.sq_scan_plain(*args)  # noqa: E731
+                b, o = k2_bound(fidx, cq, cache.valid_pool, 512, d,
+                                cache.p_max, k_out)
+            ref, got = plain(), kern()
+            torch.cuda.synchronize()
+            if tier == "int8":
+                same = torch.equal(ref[0], got[0]) and \
+                    torch.equal(ref[1], got[1])
+                err = float((ref[0] - got[0]).abs().max())
+                log(f"  sq_scan paged Q={q512.shape[0]}: bit for bit {same} "
+                    f"(max_abs_err={err:.3e})")
+                ok = same
+            else:
+                err, ok = compare(ref, got, topk_tol(q512, v2_max),
+                                  f"ivf_scan paged Q={q512.shape[0]}")
+            res[kname]["paged"] = dict(
+                shape=f"Q={q512.shape[0]} frames={len(pids)} of "
+                      f"{cache.capacity} "
+                      f"p_max={cache.p_max} k_out={k_out}",
+                max_abs_err=err, ids_equal=ok, ms=cuda_ms(kern, reps=5),
+                plain_ms=cuda_ms(plain, iters=3), bound_ms=1e3 * max(b, o),
+                bound_by="bytes" if b >= o else "operations")
+            checks.append((kname, err, ok))
+        finally:
+            cache.unpin(frames)
+    for kname, err, ok in checks:
+        r = res[kname]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ids_equal"] = r["ids_equal"] and ok
+        check(ok, f"{kname} disagrees with its plain version on this "
+              f"slice's route")
+    for kname in ("ivf_scan_topk", "sq_scan_topk"):
+        for route in ("prefilter", "paged"):
+            e = res[kname].get(route)
+            if e:
+                log(f"  time {kname} {route} [{e['shape']}]: kernel "
+                    f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+                    f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+    log(f"phase kernels (slice routes): {time.perf_counter() - t0:.1f} s")
+
+
+def kernels_line(res, launches, by_path=None):
     kernels = []
     for kname, r in res.items():
-        extra = {k: r[k] for k in ("device_ms", "exact") if k in r}
+        extra = {k: r[k] for k in ("device_ms", "exact", "prefilter",
+                                   "paged") if k in r}
+        if by_path is not None:
+            extra["launches_by_path"] = {p: c[kname]
+                                         for p, c in by_path.items()}
         kernels.append(dict(
             name=kname, **KERNEL_META[kname], launches=launches[kname],
             max_abs_err=r["max_abs_err"], ids_equal=r["ids_equal"],
@@ -937,13 +1348,27 @@ def run(args):
         kernels_only()
         return
     t0 = time.perf_counter()
-    eng, queries, out = main_path()
+    ctx, out = main_path()
     log(f"phase main: {time.perf_counter() - t0:.1f} s")
+    out["paged"], pools = paged_phase(ctx)
+    ctx["eng2"].close()
+    out["paged_build"] = paged_build_phase(ctx)
+    eng, queries = ctx["eng"], ctx["queries"]
+    t0 = time.perf_counter()
     profile_queries(eng, queries)
+    profile_paged(pools, queries)
+    log(f"phase profile: {time.perf_counter() - t0:.1f} s")
     res = timed_kernels(eng.index, queries)
+    check_path_routes(res, ctx, pools)
+    for pag in pools.values():
+        pag.close()
     eng.close()
     shutil.rmtree(WORK, ignore_errors=True)
-    kernels = kernels_line(res, out["launches"])
+    by_path = {"main": out["launches"],
+               "hybrid": out["hybrid"]["launches"],
+               "paged": out["paged"]["launches"],
+               "paged_build": out["paged_build"]["launches"]}
+    kernels = kernels_line(res, out["launches"], by_path)
     log(json.dumps({"main": {k: v for k, v in out.items()
                              if k != "launches"}}))
     log(f"phase total: {time.perf_counter() - t_all:.1f} s")

@@ -1,16 +1,27 @@
-"""Query execution for the resident index (port of the resident half of
-repro.core.executor): every search is a QueryPlan run by one fused scan.
+"""Query execution (port of repro.core.executor): every resident search is
+a QueryPlan run by one fused scan, and a paged search streams the same
+plan through the frame pool.
 
 Plan model (paper Alg. 2 generalised):
     probe set         part_ids [n]  -- shared partition scan list
     selection mask    qsel [Q, n]   -- which query wants which partition
     post-filter       keep [k, p_max] -- the compiled predicate's row mask
     k                 top-k width
-Exact = probe everything. On an int8 index an ann plan scans the code tier
-for k' = rerank_factor * k candidate rows (kernels/sq_scan.py) and reranks
-them exactly in float32; every other plan runs the float32 scan
-(kernels/ivf_scan.py). The delta merge, dedup and ||q||^2 restore close
-every path.
+Exact = probe everything; pre-filter = compact the qualifying rows into
+virtual partitions and scan those (§3.5, cost ~ the gather cap). On an
+int8 index an ann plan scans the code tier for k' = rerank_factor * k
+candidate rows (kernels/sq_scan.py) and reranks them exactly in float32;
+every other plan runs the float32 scan (kernels/ivf_scan.py). The delta
+merge, dedup and ||q||^2 restore close every path.
+
+Paged execution (`paged_search`, on a PagedIndex): the probe union comes
+from the same `_probe_union` as plan_ann, so paged and resident searches
+scan partitions in the same order; the union is faulted into the frame
+pool chunk by chunk and each chunk scanned by the same kernels with frame
+indices as the probe list and asset ids as the ids; chunk top-k lists
+merge with the stable merge_topk; an int8 pool's candidates are reranked
+from SQLite. Every scan, fault write and rerank runs on the device's
+current stream, and no chunk waits on the device.
 
 Backends follow the index's device: "cuda" launches the hand-written
 kernels, "torch" runs their plain versions on the CPU. A spec naming the
@@ -21,30 +32,27 @@ Differences from the JAX package, each deliberate:
   * the probe union is ordered by (votes descending, partition id
     ascending) -- the order lax.top_k gives -- so partitions are scanned,
     and score ties broken, in the same order as the reference;
-  * predicates run as post-filters only; "auto" and "pre" need the
-    optimizer and the pre-filter plan (ROADMAP Queue A).
+  * a pre-filter spec without a cap raises ValueError (the reference
+    asserts).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..kernels import ops
 from .hybrid import compile_filter
 from .query import QuerySpec, ResultSet
 from .topk import dedup_by_id, mask_scores, merge_topk, topk_smallest
-from .types import (INVALID_ID, MASKED_SCORE, IVFIndex, SearchResult,
-                    f32_matmul, normalize_if_cosine, pairwise_scores)
+from .types import (INVALID_ID, MASKED_SCORE, IVFIndex, PagedIndex,
+                    SearchResult, f32_matmul, normalize_if_cosine,
+                    normalize_rows, pairwise_scores, to_device)
 
 # attr_filter: [..., n_attr] float32 -> [...] bool (hybrid.compile_filter)
 AttrFilter = Callable[[torch.Tensor], torch.Tensor]
-
-_PREFILTER_TODO = (
-    "hybrid='auto' and 'pre' with a predicate need the hybrid optimizer "
-    "and the pre-filter plan, not ported yet (ROADMAP Queue A: the "
-    "optimizer and pre-filter plan); use .postfilter()")
 
 
 def _check_backend(index: IVFIndex, requested: Optional[str]) -> None:
@@ -101,15 +109,18 @@ def _probe_union(centroids, counts, metric, q, n_probe,
 
 @dataclasses.dataclass
 class QueryPlan:
-    """One search: probe set + per-query mask + post-filter + k.
-    `queries` are already metric-normalised."""
+    """One search: probe set + per-query mask + predicate + k. `queries`
+    are already metric-normalised. For kind "prefilter" the probe set is
+    replaced by `rows`, a fixed-cap compaction of the qualifying flat row
+    indices, which execute_plan repacks into virtual partitions."""
 
     queries: torch.Tensor                 # [Q, d] f32
-    part_ids: torch.Tensor                # [n] int32
+    part_ids: Optional[torch.Tensor]      # [n] int32 (None for prefilter)
     qsel: Optional[torch.Tensor]          # [Q, n] bool (None: all queries)
     k: int = 10
-    kind: str = "ann"                     # ann | exact
+    kind: str = "ann"                     # ann | exact | prefilter
     attr_filter: Optional[AttrFilter] = None
+    rows: Optional[torch.Tensor] = None   # [cap] int32 (prefilter only)
 
 
 def plan_ann(index: IVFIndex, queries: torch.Tensor, k: int, n_probe: int,
@@ -136,6 +147,36 @@ def plan_exact(index: IVFIndex, queries: torch.Tensor, k: int,
                      qsel=None, k=k, kind="exact", attr_filter=attr_filter)
 
 
+def compact_rows(ok: torch.Tensor, cap: int) -> torch.Tensor:
+    """[N] bool -> [cap] int32: the indices of the True entries in
+    ascending order, truncated to the first `cap` and padded with N -- what
+    jnp.nonzero(ok, size=cap, fill_value=N) gives -- by a cumsum and a
+    scatter, with no host sync (torch.nonzero waits for the device)."""
+    n = ok.shape[0]
+    rank = torch.cumsum(ok.to(torch.int64), 0) - 1
+    # rows past the cap, and rows that do not qualify, land in a dump slot
+    dest = torch.where(ok & (rank < cap), rank, torch.full_like(rank, cap))
+    out = torch.full((cap + 1,), n, dtype=torch.int32, device=ok.device)
+    out.scatter_(0, dest, torch.arange(n, dtype=torch.int32,
+                                       device=ok.device))
+    return out[:cap]
+
+
+def plan_prefilter(index: IVFIndex, queries: torch.Tensor, k: int,
+                   attr_filter: AttrFilter, cap: int) -> QueryPlan:
+    """Pre-filtering plan (paper §3.5): evaluate the predicate first and
+    compact the qualifying row indices into the `cap` budget; execution
+    brute-forces over just those rows, so its cost follows the predicate's
+    selectivity."""
+    q = normalize_if_cosine(queries.to(torch.float32), index.config.metric)
+    kp, p_max, _ = index.vectors.shape
+    ok = index.valid.reshape(-1) & attr_filter(
+        index.attrs.reshape(kp * p_max, index.n_attr))
+    return QueryPlan(queries=q, part_ids=None, qsel=None, k=k,
+                     kind="prefilter", attr_filter=attr_filter,
+                     rows=compact_rows(ok, cap))
+
+
 # ---------------------------------------------------------------------------
 # The fused scans
 # ---------------------------------------------------------------------------
@@ -152,12 +193,14 @@ def fused_scan(queries, vectors, valid, ids, part_ids, k_out: int, *,
 
 
 def fused_sq_scan(queries, codes, qstats, valid, part_ids, k_out: int, *,
-                  metric: str = "l2", qsel=None, keep=None, norms=None):
+                  metric: str = "l2", qsel=None, keep=None, norms=None,
+                  ids=None):
     """Candidate stage of the quantized two-stage search: the int8-domain
     scan over the code tier, emitting flat row ids (p * p_max + slot) for
-    the float32 rerank; scores are approximate."""
+    the resident rerank, or `ids` (a paged pool's asset ids) where given;
+    scores are approximate."""
     return ops.sq_scan_topk(queries, codes, qstats.lo, qstats.scale, valid,
-                            None, part_ids, k_out, metric=metric, qsel=qsel,
+                            ids, part_ids, k_out, metric=metric, qsel=qsel,
                             keep=keep, norms=norms)
 
 
@@ -183,9 +226,13 @@ def _delta_candidates_from(delta, metric: str, q: torch.Tensor,
 
 
 def _merge_epilogue(delta, metric: str, q, s, i, k: int, k_scan: int,
-                    attr_filter: Optional[AttrFilter]):
-    """Shared tail of every search: delta merge + dedup + l2 restore."""
+                    attr_filter: Optional[AttrFilter],
+                    qmask: Optional[torch.Tensor] = None):
+    """Shared tail of every search, resident and paged alike: delta merge
+    + dedup + l2 restore (`qmask` False rows are bucket padding)."""
     ds, di = _delta_candidates_from(delta, metric, q, attr_filter)
+    if qmask is not None:
+        ds = mask_scores(ds, qmask[:, None])
     k_final = min(k, k_scan + ds.shape[-1])
     s, i = merge_topk(s, i, ds, di, k_final)
     s, i = dedup_by_id(s, i)
@@ -223,6 +270,33 @@ def _rerank_float32(index: IVFIndex, q: torch.Tensor, rows: torch.Tensor,
     return _rescore_exact(q, v, got, ids, k_out, index.config.metric)
 
 
+def gather_rows(index: IVFIndex, rows: torch.Tensor):
+    """The pre-filter plan's scan input: the [cap] compacted flat rows
+    (index kp * p_max marks an empty slot) gathered into ceil(cap / p_max)
+    virtual partitions. -> (vectors [v, p_max, d], valid [v, p_max],
+    ids [v, p_max], part_ids [v] = 0..v-1)."""
+    kp, p_max, d = index.vectors.shape
+    total = kp * p_max
+    got = rows < total
+    r = torch.clamp(rows, max=total - 1).long()
+    cap = r.shape[0]
+    vparts = -(-cap // p_max)
+    pad = vparts * p_max - cap
+    dev = rows.device
+    sub_v = torch.cat([index.vectors.reshape(total, d)[r],
+                       torch.zeros((pad, d), dtype=torch.float32,
+                                   device=dev)])
+    sub_i = torch.cat([torch.where(got, index.ids.reshape(total)[r],
+                                   torch.full_like(rows, INVALID_ID)),
+                       torch.full((pad,), INVALID_ID, dtype=torch.int32,
+                                  device=dev)])
+    sub_ok = torch.cat([got, torch.zeros((pad,), dtype=torch.bool,
+                                         device=dev)])
+    return (sub_v.reshape(vparts, p_max, d), sub_ok.reshape(vparts, p_max),
+            sub_i.reshape(vparts, p_max),
+            torch.arange(vparts, dtype=torch.int32, device=dev))
+
+
 def execute_plan(index: IVFIndex, plan: QueryPlan,
                  quantized: Optional[bool] = None) -> SearchResult:
     """Run a QueryPlan through the fused scan + delta epilogue.
@@ -239,6 +313,16 @@ def execute_plan(index: IVFIndex, plan: QueryPlan,
         quantized = index.codes is not None
     elif quantized and index.codes is None:
         raise ValueError("quantized=True needs an index with int8 codes")
+    if plan.kind == "prefilter":
+        # repack the qualifying rows into virtual partitions for the same
+        # scan (the predicate was applied at compaction)
+        sub_v, sub_ok, sub_i, vpart = gather_rows(index, plan.rows)
+        k_scan = min(plan.k, sub_ok.numel())
+        s, i = fused_scan(q, sub_v, sub_ok, sub_i, vpart, k_scan,
+                          metric=cfg.metric)
+        s, i = _merge_epilogue(index.delta, cfg.metric, q, s, i, plan.k,
+                               k_scan, f)
+        return SearchResult(ids=i, scores=s)
     keep = f(index.attrs) if f is not None else None
     n = plan.part_ids.shape[0]
     if quantized and plan.kind == "ann":
@@ -274,12 +358,21 @@ def _spec_filter(spec: QuerySpec) -> Optional[AttrFilter]:
 
 def _run_spec(index: IVFIndex, queries: torch.Tensor,
               qmask: torch.Tensor, spec: QuerySpec) -> SearchResult:
+    """Route a spec to its plan: exact, the pre-filter plan for
+    hybrid="pre", else the ANN plan with the predicate as a post-filter
+    (an unresolved "auto" included, as in the reference; MicroNN.query
+    resolves "auto" through the optimizer first)."""
     f = _spec_filter(spec)
     if spec.kind == "exact":
         plan = plan_exact(index, queries, spec.k, f)
+    elif f is not None and spec.hybrid == "pre":
+        if spec.cap is None:
+            raise ValueError(
+                "pre-filtering needs a gather cap: use spec.prefilter(cap) "
+                "or let MicroNN.query size it from the selectivity "
+                "estimate")
+        plan = plan_prefilter(index, queries, spec.k, f, spec.cap)
     else:
-        if f is not None and spec.hybrid != "post":
-            raise NotImplementedError(_PREFILTER_TODO)
         plan = plan_ann(index, queries, spec.k, spec.n_probe, f,
                         u_max=spec.u_max, qmask=qmask)
     return execute_plan(index, plan, quantized=spec.use_quantized)
@@ -289,14 +382,28 @@ def _bucket(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
-def run(index: IVFIndex, queries, spec: QuerySpec, *,
+def run(index, queries, spec: QuerySpec, *,
         bucket: bool = True) -> ResultSet:
-    """Execute a QuerySpec against a resident IVFIndex -- the single query
-    entry point. The query count is padded to the next power of two
-    (padding rows are masked out of the plan and sliced off the result),
-    as in the JAX package, so a stream of batch sizes meets few distinct
-    shapes (what a captured CUDA graph per shape would need)."""
+    """Execute a QuerySpec against a resident IVFIndex or a PagedIndex --
+    the single query entry point. The query count is padded to the next
+    power of two (padding rows are masked out of the plan and sliced off
+    the result), as in the JAX package, so a stream of batch sizes meets
+    few distinct shapes (what a captured CUDA graph per shape would need).
+    A PagedIndex streams the plan through its frame pool (paged_search)."""
     _check_backend(index, spec.on_backend)
+    if isinstance(index, PagedIndex):
+        if spec.predicate is not None and spec.hybrid == "pre":
+            raise ValueError(
+                "paged mode runs predicates as post-filters over the frame "
+                "scan; pre-filtering needs the resident float32 tier")
+        if spec.u_max is not None:
+            # a capped union changes which partitions are scanned, and the
+            # paged union mirrors the resident plan exactly
+            raise ValueError("union_cap is not supported in paged mode")
+        return paged_search(index, queries, k=spec.k, kind=spec.kind,
+                            n_probe=spec.n_probe,
+                            attr_filter=_spec_filter(spec),
+                            quantized=spec.use_quantized, spec=spec)
     dev = index.device
     q = torch.as_tensor(queries, dtype=torch.float32, device=dev)
     q = torch.atleast_2d(q)
@@ -326,3 +433,192 @@ def run_coalesced(index: IVFIndex, chunks, spec: QuerySpec):
     if len(qs) == 1:
         return [run(index, qs[0], spec)]
     return run(index, torch.cat(qs, dim=0), spec).split(sizes)
+
+
+# ---------------------------------------------------------------------------
+# Paged execution: scan the memory-budgeted frame pool instead of a resident
+# tier; an int8 pool's rerank gathers float32 rows from the durable store.
+# ---------------------------------------------------------------------------
+
+
+def _rerank_from_store(store, q: torch.Tensor, cand_ids: torch.Tensor,
+                       k_out: int, metric: str):
+    """Sibling of _rerank_float32 for the paged path: gather the candidate
+    rows' float32 vectors from SQLite (one batched IN (...) over the
+    unique asset ids), normalised on the host by the op recover() uses for
+    the resident tier, and rescore them with the same _rescore_exact."""
+    cand = cand_ids.cpu().numpy()
+    got = cand != INVALID_ID
+    Q, kc = cand.shape
+    v = np.zeros((Q, kc, store.dim), np.float32)
+    if got.any():
+        uniq = np.unique(cand[got])
+        rows, found = store.vectors_for(uniq)
+        rows = normalize_rows(rows, metric)
+        idx = np.searchsorted(uniq, np.where(got, cand, uniq[0]))
+        idx = np.clip(idx, 0, len(uniq) - 1)
+        got = got & (uniq[idx] == cand) & found[idx]
+        v[got] = rows[idx[got]]
+    dev = cand_ids.device
+    return _rescore_exact(q, to_device([v], dev)[0], to_device([got], dev)[0],
+                          cand_ids, k_out, metric)
+
+
+def _paged_probes(pindex: PagedIndex, q: torch.Tensor, n_probe: int,
+                  qmask: Optional[torch.Tensor] = None):
+    """plan_ann's probe construction over the paged index's metadata --
+    literally _probe_union, so paged and resident searches agree on the
+    probe order. -> (host [n] int64 partition ids, device qsel [Q, n])."""
+    counts = torch.as_tensor(pindex.counts.astype(np.int32),
+                             device=q.device)
+    upart, qsel = _probe_union(pindex.centroids, counts,
+                               pindex.config.metric, q, n_probe,
+                               qmask=qmask)
+    return upart.cpu().numpy().astype(np.int64), qsel
+
+
+# Read-ahead: while the scan of chunk N runs, one worker thread STAGES chunk
+# N+1 (the SQLite fetch + host packing, PartitionCache.stage), so the next
+# fault pays only the device write. Staging takes no frames and no pins, so
+# the chunking, and every result, is the same with it off.
+PAGED_PREFETCH = True
+
+_PREFETCHER = None
+
+
+def _prefetcher():
+    global _PREFETCHER
+    if _PREFETCHER is None:
+        from concurrent.futures import ThreadPoolExecutor
+        _PREFETCHER = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="micronn-prefetch")
+    return _PREFETCHER
+
+
+def _wait_stage(pending):
+    """Let a read-ahead land. Staging is advisory: if it failed, fault()
+    reads the partitions from SQLite itself."""
+    try:
+        pending.result()
+    except Exception:       # noqa: BLE001 -- advisory; fault() re-reads
+        pass
+
+
+def paged_search(pindex: PagedIndex, queries, *, k: int, kind: str = "ann",
+                 n_probe: int = 8,
+                 attr_filter: Optional[AttrFilter] = None,
+                 quantized: Optional[bool] = None,
+                 spec: Optional[QuerySpec] = None) -> ResultSet:
+    """Run a search against a PagedIndex through the budgeted frame pool.
+
+    The probe union is processed in chunks of at most the pool's capacity
+    (its scan ring for exact): each chunk is faulted (pinned), scanned over
+    the pool with frame indices as the probe list and asset ids as the
+    ids, unpinned, and its top-k merged into the running result -- so the
+    resident scan tier never exceeds the budget, even for an exact scan.
+    Predicates mask the frame scan (the pool carries attrs frames); an
+    int8 pool's candidates are reranked from SQLite."""
+    cfg = pindex.config
+    cache = pindex.cache
+    dev = pindex.device
+    q = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32,
+                                         device=dev))
+    q = normalize_if_cosine(q, cfg.metric)
+    Q = q.shape[0]
+    b = _bucket(Q)
+    if b != Q:
+        q = torch.cat([q, torch.zeros((b - Q, q.shape[1]), dtype=q.dtype,
+                                      device=dev)])
+    qmask = torch.arange(b, device=dev) < Q
+    # the pool's payload fixes the scan tier: an int8 pool runs the SQ scan
+    # (paged exact on it is a full-probe near-oracle, not the f32 oracle)
+    use_sq = cache.payload == "int8"
+    if quantized is not None and bool(quantized) != use_sq:
+        raise ValueError(f"the paged scan tier is fixed by the frame pool "
+                         f"({cache.payload}); cannot force "
+                         f"quantized={quantized}")
+    if attr_filter is not None and cache.attrs_pool is None:
+        raise ValueError("a predicate needs an attribute-backed frame pool "
+                         "(a store with n_attr > 0)")
+    if kind == "exact":
+        upart = np.nonzero(pindex.counts > 0)[0].astype(np.int64)
+        qsel = qmask[:, None].expand(b, len(upart))
+    elif kind == "ann":
+        upart, qsel = _paged_probes(pindex, q, n_probe, qmask=qmask)
+    else:
+        raise ValueError(f"kind must be 'ann' or 'exact': {kind!r}")
+    n = len(upart)
+    p_max = cache.p_max
+    if use_sq:
+        k_run = min(max(k, k * cfg.rerank_factor), max(n * p_max, 1))
+    else:
+        k_run = min(k, max(n * p_max, 1))
+    run_s = torch.full((b, k_run), MASKED_SCORE, dtype=torch.float32,
+                       device=dev)
+    run_i = torch.full((b, k_run), INVALID_ID, dtype=torch.int32,
+                       device=dev)
+    # scan resistance: an exact search reads every partition once, so its
+    # faults are not admitted -- they cycle through the scan ring and chunk
+    # to its size, leaving the hot ANN working set resident
+    admit = kind != "exact"
+    chunk = cache.capacity if admit else cache.scan_frames
+    prefetch = PAGED_PREFETCH and n > chunk
+    starts = list(range(0, n, chunk))
+    pending = None          # in-flight stage of the next chunk
+    try:
+        for c, s in enumerate(starts):
+            cpids = upart[s:s + chunk]
+            if pending is not None:
+                _wait_stage(pending)
+                pending = None
+            frames = cache.fault(cpids, admit=admit)
+            if prefetch and c + 1 < len(starts):
+                s2 = starts[c + 1]
+                pending = _prefetcher().submit(cache.stage,
+                                               upart[s2:s2 + chunk])
+            try:
+                # read the pools after fault(): a resize rebinds them
+                fidx = to_device([frames], dev)[0]
+                keep = attr_filter(cache.attrs_pool) \
+                    if attr_filter is not None else None
+                cq = qsel[:, s:s + chunk]
+                k_chunk = min(k_run, len(cpids) * p_max)
+                if use_sq:
+                    cs, ci = fused_sq_scan(
+                        q, cache.payload_pool, pindex.qstats,
+                        cache.valid_pool, fidx, k_chunk, metric=cfg.metric,
+                        qsel=cq, keep=keep, norms=cache.norms_pool,
+                        ids=cache.ids_pool)
+                else:
+                    cs, ci = fused_scan(
+                        q, cache.payload_pool, cache.valid_pool,
+                        cache.ids_pool, fidx, k_chunk, metric=cfg.metric,
+                        qsel=cq, keep=keep)
+            finally:
+                # the scan is enqueued on the stream every later fault
+                # write into these frames uses, so unpinning here is safe
+                cache.unpin(frames)
+            run_s, run_i = merge_topk(run_s, run_i, cs, ci, k_run)
+    finally:
+        if pending is not None:
+            _wait_stage(pending)
+    if use_sq:
+        # the frame scan emits asset ids: rerank the k' candidates from the
+        # durable tier
+        cand = torch.where(run_s >= MASKED_SCORE,
+                           torch.full_like(run_i, INVALID_ID), run_i)
+        k_scan = min(k, k_run)
+        s_m, i_m = _rerank_from_store(cache.store, q, cand, k_scan,
+                                      cfg.metric)
+    elif n:
+        k_scan = k_run
+        s_m, i_m = run_s, run_i
+    else:
+        k_scan = 0
+        s_m = torch.zeros((b, 0), dtype=torch.float32, device=dev)
+        i_m = torch.zeros((b, 0), dtype=torch.int32, device=dev)
+    s_f, i_f = _merge_epilogue(pindex.delta, cfg.metric, q, s_m, i_m, k,
+                               k_scan, attr_filter, qmask=qmask)
+    if b != Q:
+        s_f, i_f = s_f[:Q], i_f[:Q]
+    return ResultSet(ids=i_f, scores=s_f, spec=spec)

@@ -1,18 +1,25 @@
-"""Attribute predicates (port of the predicate half of repro.core.hybrid).
+"""Hybrid queries: attribute predicates and selectivity estimation
+(paper §3.5; port of repro.core.hybrid).
 
 Attributes are float32 columns aligned to the vector layout. Predicates
 support the paper's operators (>, <, >=, <=, =, !=) plus MATCH (a token
-bitset test, the FTS5 stand-in) and arbitrary AND/OR trees. In this port
-a predicate runs as a post-filter: `compile_filter` turns a tree into a
-callable that maps attrs [..., n_attr] to a keep mask [...], which the
-scan kernels read beside `valid`. Selectivity estimation (AttributeStats)
-belongs to the optimizer and is not ported yet.
+bitset test, the FTS5 stand-in) and arbitrary AND/OR trees.
+`compile_filter` turns a tree into a callable that maps attrs
+[..., n_attr] to a keep mask [...]: the post-filter mask the scan kernels
+read beside `valid`, and the pre-filter plan's row test.
+
+Selectivity estimation (paper §3.5.1, `AttributeStats`): per-column
+equi-width histograms and distinct counts, min over AND and the clamped
+sum over OR (Eq. 3). It runs on the host in float64 numpy with the JAX
+package's very calls, so its estimates -- and every plan decision the
+optimizer (core/optimizer.py) takes from them -- equal the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 _OPS = ("lt", "le", "gt", "ge", "eq", "ne", "match")
@@ -116,3 +123,106 @@ def _freeze(node: Node):
         return (node.col, node.op, node.value)
     tag = "and" if isinstance(node, And) else "or"
     return (tag,) + tuple(_freeze(c) for c in node.children)
+
+
+# ---------------------------------------------------------------------------
+# Histograms & selectivity estimation
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ColumnStats:
+    lo: float
+    hi: float
+    counts: np.ndarray      # [bins]
+    n_distinct: int
+    n_rows: int
+    is_bitset: bool = False  # MATCH columns: per-bit population counts
+    bit_counts: Optional[np.ndarray] = None  # [32]
+
+    @property
+    def bins(self) -> int:
+        return len(self.counts)
+
+
+class AttributeStats:
+    """Per-column equi-width histograms over the live attribute rows
+    ([n, n_attr] host array)."""
+
+    def __init__(self, attrs: np.ndarray, bins: int = 64,
+                 bitset_cols: Sequence[int] = ()):
+        attrs = np.asarray(attrs, np.float64)
+        self.n_rows = attrs.shape[0]
+        self.cols: Dict[int, ColumnStats] = {}
+        for c in range(attrs.shape[1]):
+            col = attrs[:, c]
+            lo, hi = (float(col.min()), float(col.max())) if len(col) \
+                else (0, 1)
+            if hi <= lo:
+                hi = lo + 1.0
+            counts, _ = np.histogram(col, bins=bins, range=(lo, hi))
+            bit_counts = None
+            if c in bitset_cols:
+                u = col.astype(np.uint32)
+                bit_counts = np.array(
+                    [int(((u >> b) & 1).sum()) for b in range(32)])
+            self.cols[c] = ColumnStats(
+                lo=lo, hi=hi, counts=counts,
+                n_distinct=int(len(np.unique(col))) if len(col) else 1,
+                n_rows=self.n_rows,
+                is_bitset=c in bitset_cols,
+                bit_counts=bit_counts)
+
+    def _leaf_card(self, p: Pred) -> float:
+        st = self.cols[p.col]
+        n = st.n_rows
+        if n == 0:
+            return 0.0
+        if p.op == "match" and st.is_bitset:
+            # independence across tag bits: sel = prod_b (bit_count_b / n)
+            # over the required bits
+            sel = 1.0
+            bits = int(p.value)
+            for b in range(32):
+                if bits >> b & 1:
+                    sel *= st.bit_counts[b] / n
+            return sel * n
+        if p.op in ("eq", "ne"):
+            # skew-aware: the value's histogram bin upper-bounds its count;
+            # take the sharper of (uniform 1/n_distinct, bin mass)
+            uniform = n / max(1, st.n_distinct)
+            card = uniform
+            width = (st.hi - st.lo) / st.bins
+            if st.lo <= p.value <= st.hi and width > 0:
+                bin_i = min(int((p.value - st.lo) / width), st.bins - 1)
+                card = min(uniform, float(st.counts[bin_i]))
+            return card if p.op == "eq" else n - card
+        # range predicates: fractional histogram mass strictly below v
+        width = (st.hi - st.lo) / st.bins
+        if p.value <= st.lo:
+            below = 0.0
+        elif p.value >= st.hi:
+            below = float(n)
+        else:
+            bin_i = min(int((p.value - st.lo) / width), st.bins - 1)
+            frac = (p.value - (st.lo + bin_i * width)) / width
+            below = float(st.counts[:bin_i].sum()
+                          + st.counts[bin_i] * np.clip(frac, 0.0, 1.0))
+        if p.op in ("lt", "le"):
+            return below
+        return n - below
+
+    def cardinality(self, node: Node) -> float:
+        """|sigma_filters(R)| estimate -- min over AND, sum over OR (Eq. 3)."""
+        if isinstance(node, Pred):
+            return self._leaf_card(node)
+        cards = [self.cardinality(c) for c in node.children]
+        if isinstance(node, And):
+            return min(cards)
+        return min(sum(cards), self.n_rows)
+
+    def selectivity_factor(self, node: Node) -> float:
+        """F_hat_filters (Eq. 3): min(card, |R|) / |R|."""
+        if self.n_rows == 0:
+            return 0.0
+        return min(self.cardinality(node), self.n_rows) / self.n_rows

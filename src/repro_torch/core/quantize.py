@@ -9,17 +9,20 @@ always come from the exact float32 rerank.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .types import QuantStats, f32_matmul, resolve_device
+from .types import (QuantStats, f32_matmul, normalize_if_cosine,
+                    resolve_device)
 
 # Number of representable levels: codes span [-128, 127] <-> [0, 255].
 LEVELS = 255
 # Guard against zero-width dimensions (constant columns).
 MIN_SCALE = 1e-12
+# Rows decoded at a time by row_norms (bounds its float32 scratch).
+_NORM_CHUNK_ROWS = 1 << 18
 
 
 def train(X: torch.Tensor) -> QuantStats:
@@ -36,6 +39,27 @@ def train(X: torch.Tensor) -> QuantStats:
     hi = X.amax(dim=0)
     scale = torch.clamp((hi - lo) / LEVELS, min=MIN_SCALE)
     return QuantStats(lo=lo, scale=scale)
+
+
+def train_from_store(store, metric: str = "l2", batch_size: int = 4096,
+                     device=None) -> QuantStats:
+    """Streaming min/max over the durable tier (storage.VectorStore): one
+    pass of `iter_batches`, never the full dataset in host memory. Rows are
+    metric-normalised on the host, as recover() normalises them."""
+    lo: Optional[np.ndarray] = None
+    hi: Optional[np.ndarray] = None
+    for batch in store.iter_batches(batch_size):
+        b = normalize_if_cosine(
+            torch.from_numpy(np.ascontiguousarray(batch, np.float32)),
+            metric).numpy()
+        blo, bhi = b.min(axis=0), b.max(axis=0)
+        lo = blo if lo is None else np.minimum(lo, blo)
+        hi = bhi if hi is None else np.maximum(hi, bhi)
+    if lo is None:
+        lo = np.zeros((store.dim,), np.float32)
+        hi = lo
+    scale = np.maximum((hi - lo) / LEVELS, MIN_SCALE)
+    return stats_from_arrays(lo, scale, device=device)
 
 
 def encode(stats: QuantStats, x: torch.Tensor) -> torch.Tensor:
@@ -87,9 +111,28 @@ def fold_queries(stats: QuantStats, q: torch.Tensor
 
 def row_norms(stats: QuantStats, codes: torch.Tensor) -> torch.Tensor:
     """[..., p, d] int8 codes -> [..., p] f32 ||decode(c)||^2, the l2 scan's
-    per-row constant (IVFIndex.code_norms)."""
-    v = decode(stats, codes)
-    return torch.sum(v * v, dim=-1)
+    per-row constant (IVFIndex.code_norms, and the paged int8 pool's norms
+    frames).
+
+    The squares are summed in one fixed pairwise order with elementwise
+    adds only (zero-padded to a power of two; adding 0.0 is exact), so a
+    row's norm has the same bits whatever batch it is computed in and on
+    either device: the pager computes it per faulted frame, the resident
+    engine over the whole index, and the two scans must rank alike."""
+    d = codes.shape[-1]
+    lead = codes.shape[:-1]
+    flat = codes.reshape(-1, d)
+    out = torch.empty((flat.shape[0],), dtype=torch.float32,
+                      device=codes.device)
+    width = 1 << max(0, (d - 1).bit_length())
+    for s in range(0, flat.shape[0], _NORM_CHUNK_ROWS):
+        v = decode(stats, flat[s:s + _NORM_CHUNK_ROWS])
+        sq = torch.nn.functional.pad(v * v, (0, width - d))
+        while sq.shape[-1] > 1:
+            h = sq.shape[-1] // 2
+            sq = sq[:, :h] + sq[:, h:]
+        out[s:s + _NORM_CHUNK_ROWS] = sq[:, 0]
+    return out.reshape(lead)
 
 
 def stats_to_arrays(stats: QuantStats):

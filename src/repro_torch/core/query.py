@@ -43,7 +43,7 @@ class QuerySpec:
       u_max         optional cap on the batched shared-scan union (MQO)
       cap           prefilter gather budget (hybrid == "pre")
       predicate     attribute predicate tree (Pred/And/Or)
-      hybrid        "auto" | "pre" | "post" (the port runs "post" only)
+      hybrid        "auto" (the engine's optimizer picks) | "pre" | "post"
       use_quantized scan tier: None auto (codes when present), False f32,
                     True requires codes
       on_backend    None (the index's device) | "cuda" | "torch"

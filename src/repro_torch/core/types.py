@@ -11,13 +11,15 @@ partition-major padded layout:
 The delta-store (paper §3.6: "a reserved partition identifier") is carried
 as a separate fixed-capacity block scanned by every query. All tensors of
 one index live on one device (the engine's: "cuda" unless the caller asks
-for "cpu").
+for "cpu"). `PagedIndex` is the disk-resident mode's view: metadata on the
+device, the scan tier paged through a frame pool.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 # Distances are "smaller is better" throughout. L2 uses squared distance;
@@ -155,6 +157,56 @@ class IVFIndex:
 
 
 @dataclasses.dataclass
+class PagedIndex:
+    """Memory-budgeted paged view of the index (the paper's disk-resident
+    mode): only metadata is resident -- centroids, csizes, live counts, the
+    delta store and the quantizer stats. The scan tier (int8 codes when
+    quantized, float32 vectors otherwise) stays in SQLite and is faulted
+    on demand into a storage/pager.PartitionCache frame pool;
+    core/executor.paged_search drives fault -> frame scan -> disk rerank.
+    Host-driven, not a tensor container: `counts` is a host array, and the
+    cache is a stateful host object."""
+
+    centroids: torch.Tensor    # [k, d] f32 (device)
+    csizes: torch.Tensor       # [k] f32 (device)
+    counts: np.ndarray         # [k] int64 host array -- live rows/partition
+    delta: DeltaStore          # resident staging area (small, fixed cap)
+    cache: object              # storage.pager.PartitionCache
+    base_mean_size: float
+    qstats: Optional[QuantStats] = None
+    # per-partition drift (host array, the same signal as IVFIndex.drift)
+    drift: Optional[np.ndarray] = None
+    config: IVFConfig = dataclasses.field(default_factory=IVFConfig)
+
+    @property
+    def k(self) -> int:
+        return self.centroids.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.centroids.shape[1]
+
+    @property
+    def p_max(self) -> int:
+        return self.cache.p_max
+
+    @property
+    def n_attr(self) -> int:
+        return self.delta.attrs.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.centroids.device
+
+    @property
+    def quantized(self) -> bool:
+        return self.qstats is not None and self.cache.payload == "int8"
+
+    def num_live(self) -> int:
+        return int(self.counts.sum()) + int(self.delta.valid.sum())
+
+
+@dataclasses.dataclass
 class SearchResult:
     """Top-k result batch. ids are INVALID_ID where fewer than k matches."""
 
@@ -202,3 +254,26 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def normalize_rows(rows: np.ndarray, metric: str) -> np.ndarray:
+    """Host-side metric normalisation of durable float32 rows, the op
+    recover() applies before packing the resident tier."""
+    return normalize_if_cosine(
+        torch.from_numpy(np.ascontiguousarray(rows, np.float32)),
+        metric).numpy()
+
+
+def to_device(blocks: Sequence[np.ndarray], device: torch.device
+              ) -> torch.Tensor:
+    """Stack host blocks into one tensor on `device`. On a CUDA device the
+    stack lands in a pinned buffer and the copy is asynchronous on the
+    current stream (no host sync)."""
+    if device.type != "cuda":
+        return torch.from_numpy(np.stack(blocks))
+    first = np.asarray(blocks[0])
+    buf = torch.empty((len(blocks),) + first.shape,
+                      dtype=torch.from_numpy(first[:0]).dtype,
+                      pin_memory=True)
+    np.stack(blocks, out=buf.numpy())
+    return buf.to(device, non_blocking=True)

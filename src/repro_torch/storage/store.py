@@ -14,22 +14,40 @@
     concurrently with transactionally consistent reads").
 
 A copy of repro.storage.store with the same schema byte for byte, so a
-database file written by either package opens in the other. The paged
-mode's readers (batched partition scans, per-asset vector and partition
-lookups) are left out with paged mode itself. This layer runs on the host:
-the durable home of the index and the source of device uploads.
+database file written by either package opens in the other. This layer
+runs on the host: the durable home of the index, the source of device
+uploads, and in paged mode the scan tier itself (batched partition scans
+feed the frame pool, per-asset gathers feed the rerank).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import sqlite3
-from typing import Optional, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
 # SQLite bound-parameter ceiling (999 before 3.32); chunk IN (...) queries.
 _PARAM_CHUNK = 500
+
+
+@dataclasses.dataclass
+class PartitionBlocks:
+    """One batched probe-set fetch, packed as padded partition frames.
+
+    Arrays are aligned to the requested pid order: frame j holds partition
+    pids[j]. `vecs` rows are the raw durable vectors (the pager applies
+    metric normalisation); `code_ok` marks rows whose int8 code existed in
+    the durable side table (False rows are re-encoded by the caller)."""
+
+    vecs: Optional[np.ndarray]          # [m, p_max, d] f32 (None if skipped)
+    ids: np.ndarray                     # [m, p_max] int32 (-1 padding)
+    valid: np.ndarray                   # [m, p_max] bool
+    codes: Optional[np.ndarray] = None  # [m, p_max, d] int8
+    code_ok: Optional[np.ndarray] = None  # [m, p_max] bool
+    attrs: Optional[np.ndarray] = None  # [m, p_max, n_attr] float32
 
 
 class VectorStore:
@@ -291,6 +309,58 @@ class VectorStore:
                             (gen,))
             self._set_meta("generation", str(gen))
 
+    def reassign_partitions(self, asset_ids: Sequence[int],
+                            partition_ids: Sequence[int],
+                            centroids: np.ndarray, csizes: np.ndarray):
+        """Install a new clustering generation without materialising the
+        vector blobs (the paged build's swap): partition ids move by keyed
+        UPDATEs against the clustered primary key (SQLite re-inserts each
+        row at its new key), centroids swap generations atomically. Same
+        contract as set_partitions, O(1) vector bytes in host memory."""
+        gen = self.generation + 1
+        with self.transaction():
+            self.db.executemany(
+                "UPDATE vectors SET partition_id=? WHERE asset_id=?",
+                [(int(p), int(a))
+                 for a, p in zip(asset_ids, partition_ids)])
+            self.db.executemany(
+                "INSERT INTO centroids(generation, partition_id, vec, csize)"
+                " VALUES (?, ?, ?, ?)",
+                [(gen, i, np.ascontiguousarray(c, np.float32).tobytes(),
+                  float(s))
+                 for i, (c, s) in enumerate(zip(centroids, csizes))])
+            self.db.execute("DELETE FROM centroids WHERE generation < ?",
+                            (gen,))
+            self._set_meta("generation", str(gen))
+
+    def iter_asset_ids(self) -> np.ndarray:
+        """All asset ids in the clustered scan order (the order
+        iter_batches streams the vectors in)."""
+        return np.array([r[0] for r in self.db.execute(
+            "SELECT asset_id FROM vectors"
+            " ORDER BY partition_id, asset_id")], np.int64)
+
+    def apply_repair(self, moved_ids: Sequence[int],
+                     moved_pids: Sequence[int],
+                     touched_pids: Sequence[int],
+                     centroids: np.ndarray, csizes: np.ndarray):
+        """Persist one local repair (the paged flush's row moves) in ONE
+        transaction at the current generation: the moved rows' keyed
+        partition UPDATEs and the touched partitions' centroid rows.
+        `centroids`/`csizes` are aligned to `touched_pids`."""
+        gen = self.generation
+        with self.transaction():
+            self.db.executemany(
+                "UPDATE vectors SET partition_id=? WHERE asset_id=?",
+                [(int(p), int(a))
+                 for a, p in zip(moved_ids, moved_pids)])
+            self.db.executemany(
+                "INSERT OR REPLACE INTO centroids"
+                " (generation, partition_id, vec, csize) VALUES (?, ?, ?, ?)",
+                [(gen, int(p),
+                  np.ascontiguousarray(c, np.float32).tobytes(), float(s))
+                 for p, c, s in zip(touched_pids, centroids, csizes)])
+
     def update_centroids(self, centroids: np.ndarray, csizes: np.ndarray):
         gen = self.generation
         with self.transaction():
@@ -302,6 +372,179 @@ class VectorStore:
                  for i, (c, s) in enumerate(zip(centroids, csizes))])
 
     # -- reads (snapshot-consistent within one connection txn) --------------
+    def count(self) -> int:
+        return self.read_db.execute(
+            "SELECT COUNT(*) FROM vectors").fetchone()[0]
+
+    def scan_partition(self, pid: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(asset ids [m] int64, raw vectors [m, d]) of one partition in
+        asset-id order (-1: the pending delta rows)."""
+        rows = self.read_db.execute(
+            "SELECT asset_id, vec FROM vectors WHERE partition_id=?"
+            " ORDER BY asset_id", (pid,)).fetchall()
+        if not rows:
+            return (np.zeros((0,), np.int64),
+                    np.zeros((0, self.dim), np.float32))
+        ids = np.fromiter((r[0] for r in rows), np.int64, count=len(rows))
+        vecs = np.frombuffer(b"".join(r[1] for r in rows), np.float32) \
+            .reshape(len(rows), self.dim).copy()
+        return ids, vecs
+
+    def scan_partitions(self, pids: Sequence[int], p_max: int,
+                        with_codes: bool = False,
+                        with_attrs: bool = False,
+                        with_vecs: bool = True) -> PartitionBlocks:
+        """Batched probe-set fetch (the pager's fault path): every listed
+        partition in one SQL round-trip (chunked only by the bound-parameter
+        limit), packed into padded [m, p_max, *] frame blocks. The clustered
+        (partition_id, asset_id) key makes each partition a sequential range
+        scan; codes and attributes ride along by LEFT JOIN. `with_vecs=False`
+        skips the float32 blobs (an int8 fault then reads 4x fewer bytes;
+        the rare code-less row is backfilled by the caller via vectors_for).
+        Packing is vectorised: one blob join and one scatter per column."""
+        m = len(pids)
+        want = [int(p) for p in pids]
+        if len(set(want)) != m:
+            raise ValueError("duplicate partition ids in one fetch")
+        vecs = np.zeros((m, p_max, self.dim), np.float32) if with_vecs \
+            else None
+        ids = np.full((m, p_max), -1, np.int32)
+        valid = np.zeros((m, p_max), bool)
+        codes = np.zeros((m, p_max, self.dim), np.int8) if with_codes \
+            else None
+        code_ok = np.zeros((m, p_max), bool) if with_codes else None
+        n_attr = self.n_attr if with_attrs else 0
+        attrs = np.zeros((m, p_max, n_attr), np.float32) if with_attrs \
+            else None
+        cols = "v.partition_id, v.asset_id"
+        if with_vecs:
+            cols += ", v.vec"
+        joins = ""
+        if with_codes:
+            cols += ", c.code"
+            joins += " LEFT JOIN codes c ON c.asset_id = v.asset_id"
+        if with_attrs and self.n_attr:
+            cols += ", " + ", ".join(f"a.a{i}" for i in range(self.n_attr))
+            joins += " LEFT JOIN attributes a ON a.asset_id = v.asset_id"
+        for s in range(0, m, _PARAM_CHUNK):
+            chunk = want[s:s + _PARAM_CHUNK]
+            ph = ", ".join("?" * len(chunk))
+            rows = self.read_db.execute(
+                f"SELECT {cols} FROM vectors v{joins}"
+                f" WHERE v.partition_id IN ({ph})"
+                f" ORDER BY v.partition_id, v.asset_id", chunk).fetchall()
+            if not rows:
+                continue
+            nr = len(rows)
+            pid_col = np.fromiter((r[0] for r in rows), np.int64, nr)
+            # pid -> block row: slot of chunk[t] is s + t, recovered by a
+            # searchsorted over the sorted chunk
+            sidx = np.argsort(np.asarray(chunk, np.int64), kind="stable")
+            j_col = (s + sidx)[np.searchsorted(
+                np.asarray(chunk, np.int64)[sidx], pid_col)]
+            # slot within the partition: rows arrive grouped by pid (the
+            # ORDER BY), so it is the offset from each group's start
+            starts = np.flatnonzero(
+                np.r_[True, pid_col[1:] != pid_col[:-1]])
+            counts = np.diff(np.r_[starts, nr])
+            if counts.max() > p_max:
+                big = pid_col[starts[np.argmax(counts)]]
+                raise ValueError(
+                    f"partition {big} overflows frame p_max={p_max}")
+            i_col = np.arange(nr) - np.repeat(starts, counts)
+            ids[j_col, i_col] = np.fromiter(
+                (r[1] for r in rows), np.int64, nr)
+            valid[j_col, i_col] = True
+            c = 2
+            if with_vecs:
+                vecs[j_col, i_col] = np.frombuffer(
+                    b"".join(r[c] for r in rows),
+                    np.float32).reshape(nr, self.dim)
+                c += 1
+            if with_codes:
+                blobs = [r[c] for r in rows]
+                ok = np.fromiter((b is not None for b in blobs), bool, nr)
+                sel = np.flatnonzero(ok)
+                if len(sel):
+                    codes[j_col[sel], i_col[sel]] = np.frombuffer(
+                        b"".join(blobs[t] for t in sel),
+                        np.int8).reshape(len(sel), self.dim)
+                    code_ok[j_col[sel], i_col[sel]] = True
+                c += 1
+            if with_attrs and self.n_attr:
+                arows = [r[c:c + self.n_attr] for r in rows]
+                sel = np.flatnonzero(np.fromiter(
+                    (a[0] is not None for a in arows), bool, nr))
+                if len(sel):
+                    attrs[j_col[sel], i_col[sel]] = np.asarray(
+                        [arows[t] for t in sel], np.float32)
+        return PartitionBlocks(vecs=vecs, ids=ids, valid=valid, codes=codes,
+                               code_ok=code_ok, attrs=attrs)
+
+    def vectors_for(self, asset_ids: Sequence[int]
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """([n, d] f32 raw vectors, [n] found mask) for the given assets in
+        one batched IN (...) query -- the paged rerank's disk gather."""
+        out = np.zeros((len(asset_ids), self.dim), np.float32)
+        found = np.zeros((len(asset_ids),), bool)
+        for (_, blob), j in self._gather_by_asset("vec", "vectors",
+                                                  asset_ids):
+            out[j] = np.frombuffer(blob, np.float32)
+            found[j] = True
+        return out, found
+
+    def partitions_for(self, asset_ids: Sequence[int]) -> np.ndarray:
+        """asset id -> current partition id (-2 where the asset is absent;
+        -1 is the delta partition)."""
+        out = np.full((len(asset_ids),), -2, np.int64)
+        for (_, p), j in self._gather_by_asset("partition_id", "vectors",
+                                               asset_ids):
+            out[j] = p
+        return out
+
+    def partition_counts(self, k: int) -> np.ndarray:
+        """[k] live main-tier rows per partition (one GROUP BY scan)."""
+        out = np.zeros((k,), np.int64)
+        for p, c in self.read_db.execute(
+                "SELECT partition_id, COUNT(*) FROM vectors"
+                " WHERE partition_id >= 0 GROUP BY partition_id"):
+            if 0 <= p < k:
+                out[p] = c
+        return out
+
+    def iter_batches(self, batch_size: int) -> Iterator[np.ndarray]:
+        """Stream all vectors partition-ordered (clustered scan)."""
+        cur = self.db.execute(
+            "SELECT vec FROM vectors ORDER BY partition_id, asset_id")
+        while True:
+            rows = cur.fetchmany(batch_size)
+            if not rows:
+                return
+            yield np.frombuffer(b"".join(r[0] for r in rows),
+                                np.float32).reshape(len(rows),
+                                                    self.dim).copy()
+
+    def sample(self, size: int, rng: np.random.Generator) -> np.ndarray:
+        """Uniform random row sample with replacement, in the clustered
+        scan's row numbering (the mini-batch k-means feed): the same draws
+        as the JAX package's for the same generator state."""
+        n = self.count()
+        if n == 0:
+            return np.zeros((0, self.dim), np.float32)
+        idx = sorted(int(i) for i in rng.integers(0, n, size=size))
+        out = []
+        cur = self.db.execute(
+            "SELECT vec FROM vectors ORDER BY partition_id, asset_id")
+        want = iter(idx)
+        nxt = next(want, None)
+        for i, row in enumerate(cur):
+            while nxt is not None and nxt == i:
+                out.append(np.frombuffer(row[0], np.float32))
+                nxt = next(want, None)
+            if nxt is None:
+                break
+        return np.stack(out) if out else np.zeros((0, self.dim), np.float32)
+
     def centroids(self) -> Tuple[np.ndarray, np.ndarray]:
         rows = self.read_db.execute(
             "SELECT vec, csize FROM centroids WHERE generation=?"

@@ -10,7 +10,7 @@
 3. The port's own build from the same rows and seed is held to the JAX
    build's recall and, at a measured floor, its partition assignment.
 4. The port imports neither jax nor repro, and without a GPU its engine
-   refuses the default device.
+   (resident or paged) refuses the default device.
 
 Tolerance: scores within 1e-5 * (||q||^2 + max ||v||^2) per query (float32
 sums in different orders; see repro_torch.testing), ids equal row by row
@@ -231,8 +231,9 @@ def test_backend_names_follow_the_device():
     executor.run(tidx, q[:2], query.Q.knn(k=5).backend("torch"))
     with pytest.raises(ValueError):
         executor.run(tidx, q[:2], query.Q.knn(k=5).backend("cuda"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        executor.run(tidx, q[:2], query.Q.knn(k=5).where(Pred(0, "<", 2)))
+    # an unresolved hybrid="auto" runs the fused post-filter, as in JAX
+    _both(jidx, tidx, q[:2], jquery.Q.knn(k=5).where(JPred(0, "<", 2)),
+          query.Q.knn(k=5).where(Pred(0, "<", 2)), X, "l2")
 
 
 @pytest.mark.parametrize("tier", ["none", "int8"])
@@ -380,5 +381,8 @@ def test_engine_default_device_needs_a_gpu():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         MicroNN(dim=DIM)
-    with pytest.raises(NotImplementedError, match="paged"):
-        MicroNN(dim=DIM, device="cpu", memory_budget_mb=4)
+    # paged mode needs the card like the resident mode, and runs on the
+    # CPU when asked
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MicroNN(dim=DIM, memory_budget_mb=4)
+    assert MicroNN(dim=DIM, device="cpu", memory_budget_mb=4).paged

@@ -14,14 +14,22 @@ Phases (any failure exits non-zero and prints no result line):
                  (1,000,000 x 128, l2, 2 attributes, seed 0) ingested into
                  SQLite, build() with the int8 tier (rerank_factor=4),
                  queries at Q in {1, 32, 512} on the int8 and f32 tiers,
-                 exact queries, a post-filter query, upserts, a delete and
-                 a recover() into a second engine. Recall is held against
-                 a brute-force oracle on the card.
+                 exact queries, a post-filter query (the predicate program
+                 evaluated in the scan, held bit for bit against the mask
+                 route), upserts, a delete and a recover() into a second
+                 engine. Recall is held against a brute-force oracle on
+                 the card.
      hybrid   -- (inside main, before the writes) the optimizer on the
                  resident engine: a selective predicate resolves to the
                  pre-filter plan (K1 over the gathered rows; recall@100 =
                  1.000 against a filtered brute force), a broad one to the
-                 post-filter plan.
+                 post-filter plan (program route == mask route).
+     maintenance -- (inside main, after the writes, before recover) the
+                 monitor's verdict and work queue on the 1M engine, then
+                 maintain(until_idle=True, max_steps=S), each step timed by
+                 part; exact recall, ANN recall against its value before,
+                 writes still visible. Recover and the paged phase then
+                 read the repaired file.
      paged    -- (after recover) the disk-resident mode on the same file:
                  an int8 pool and an f32 pool of memory_budget_mb=10 answer
                  like the recovered resident engine, bit for bit; paged
@@ -29,6 +37,9 @@ Phases (any failure exits non-zero and prints no result line):
      paged build -- a paged build (int8, 10 MiB) of the first 100,000 rows
                  into a fresh file: streamed from SQLite, its final
                  assignment through K3.
+     rebuild  -- on that file: upserts, maintain() acting on the monitor's
+                 verdict, then maintain(force="rebuild") paged and, on the
+                 same file, resident -- each through K3.
      Each path's kernel launch counters are zeroed just before it and read
      just after; every kernel the path runs must show launches.
   4. kernels  -- each kernel against its plain PyTorch version on the card
@@ -36,15 +47,18 @@ Phases (any failure exits non-zero and prints no result line):
                  CUDA events beside the plain version and a PyTorch
                  yardstick (library_ms), with its roofline bound, and as
                  their kernels' device time in a profiler trace; K1 on the
-                 exact route also without row sharing, bit for bit. Then K1
-                 on the pre-filter plan's gathered rows and K1 / K2 over a
-                 chunk of the paged frame pools.
+                 exact route also without row sharing, bit for bit; K1 / K2
+                 with the predicate program against the mask route (bit for
+                 bit) and the plain version. Then K1 on the pre-filter
+                 plan's gathered rows and K1 / K2 over a chunk of the paged
+                 frame pools, with and without a program.
   5. result   -- one JSON line of kernels, the card's name and power limit,
                  and the contract line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import shutil
 import subprocess
@@ -201,7 +215,8 @@ def scan_work(part_ids, qsel, valid, n_q):
     """What a scan's inputs need, counted from this run's data: (probed
     partitions that some query selects, their valid rows, valid rows summed
     over the selected (query, partition) pairs). The kernels skip
-    unselected pairs and read payload for valid rows only."""
+    unselected pairs and read payload for valid rows only (with a
+    predicate, pass valid & keep: payload is read for kept rows only)."""
     import torch
     rows_per = valid[part_ids.long()].sum(1).to(torch.float64)       # [n]
     if qsel is None:
@@ -212,34 +227,244 @@ def scan_work(part_ids, qsel, valid, n_q):
     return int(sel.sum()), float(rows_per[sel].sum()), pair_rows
 
 
-def k1_bound(part_ids, qsel, valid, n_q, d, p_max, k_out):
+def _attr_bytes(part_ids, qsel, valid, n_q, keep, n_attr):
+    """(payload mask, attrs bytes) of a filtered scan: a predicate program
+    reads the n_attr float32 attributes of every valid row of the selected
+    partitions, and payload only for the rows it keeps."""
+    if keep is None:
+        return valid, 0.0
+    rows_valid = scan_work(part_ids, qsel, valid, n_q)[1]
+    return valid & keep, rows_valid * 4.0 * n_attr
+
+
+def k1_bound(part_ids, qsel, valid, n_q, d, p_max, k_out, keep=None,
+             n_attr=0):
     """(bound seconds by bytes, by operations) of ivf_scan_topk (l2): the
     selected partitions' valid rows (f32) and valid bytes, the probe list,
     queries and selection mask read once, the k_out ids gathered and the
     outputs written once; 2d flops per valid row of each selected pair plus
-    2d per valid row for ||v||^2."""
+    2d per valid row for ||v||^2. With a predicate program (`keep`, its row
+    mask): the valid rows' attrs, and payload and flops for kept rows."""
     n = part_ids.shape[0]
-    parts, rows, pair_rows = scan_work(part_ids, qsel, valid, n_q)
-    b = (rows * 4 * d + parts * p_max + n * 4 + n_q * 4 * d
+    ok, attr_b = _attr_bytes(part_ids, qsel, valid, n_q, keep, n_attr)
+    parts, rows, pair_rows = scan_work(part_ids, qsel, ok, n_q)
+    parts = scan_work(part_ids, qsel, valid, n_q)[0]
+    b = (rows * 4 * d + attr_b + parts * p_max + n * 4 + n_q * 4 * d
          + (n_q * n if qsel is not None else 0) + n_q * k_out * (4 + 8))
     o = 2.0 * d * (pair_rows + rows)
     return b / HBM_BYTES_PER_S, o / F32_FLOPS
 
 
-def k2_bound(part_ids, qsel, valid, n_q, d, p_max, k_out):
+def k2_bound(part_ids, qsel, valid, n_q, d, p_max, k_out, keep=None,
+             n_attr=0):
     """(bound seconds by bytes, by operations) of sq_scan_folded on the
     norms route: the selected partitions' valid rows' codes and norms,
     valid bytes, the probe list, the folded queries (int8 [2Q, d], alpha,
     beta), lo/scale and the selection mask read once, outputs written once;
     2 * 2d int8 operations per valid row of each selected pair (two
-    folded terms)."""
+    folded terms). With a predicate program: as k1_bound."""
     n = part_ids.shape[0]
-    parts, rows, pair_rows = scan_work(part_ids, qsel, valid, n_q)
-    b = (rows * (d + 4) + parts * p_max + n * 4 + n_q * (2 * d + 12)
-         + 2 * d * 4 + (n_q * n if qsel is not None else 0)
-         + n_q * k_out * 8)
+    ok, attr_b = _attr_bytes(part_ids, qsel, valid, n_q, keep, n_attr)
+    parts, rows, pair_rows = scan_work(part_ids, qsel, ok, n_q)
+    parts = scan_work(part_ids, qsel, valid, n_q)[0]
+    b = (rows * (d + 4) + attr_b + parts * p_max + n * 4
+         + n_q * (2 * d + 12) + 2 * d * 4
+         + (n_q * n if qsel is not None else 0) + n_q * k_out * 8)
     o = 2.0 * (2 * d) * pair_rows
     return b / HBM_BYTES_PER_S, o / INT8_OPS
+
+
+def bound_of(b, o):
+    return dict(bound_ms=1e3 * max(b, o),
+                bound_by="bytes" if b >= o else "operations")
+
+
+def lib_scan_f32(q, vec, valid, part_ids, qsel, k_out, filt=None):
+    """K1's function in one dense product + topk over every probed row:
+    the yardstick (exactly K1's work on the exact route). `filt` (a
+    compiled filter, attrs) masks the rows by the predicate, evaluated over
+    the probed rows."""
+    import torch
+    from repro_torch.core.types import f32_matmul
+    pid_l = part_ids.long()
+    d, p_max = vec.shape[-1], vec.shape[1]
+    pv = vec[pid_l].reshape(-1, d)
+    s = torch.sum(pv * pv, -1)[None, :] - 2.0 * f32_matmul(q, pv.T)
+    ok = valid[pid_l].reshape(1, -1)
+    if filt is not None:
+        ok = ok & filt[0](filt[1][pid_l]).reshape(1, -1)
+    if qsel is not None:
+        ok = ok & qsel.repeat_interleave(p_max, dim=1)
+    s = s.masked_fill(~ok, float("inf"))
+    return torch.topk(s, k_out, dim=1, largest=False)
+
+
+def lib_scan_int8(q_i8, alpha, beta, codes, norms, valid, part_ids, qsel,
+                  k_out, filt=None):
+    """K2's function (norms route) as one dense product of the cast codes
+    + topk: its yardstick."""
+    import torch
+    from repro_torch.core.types import f32_matmul
+    pid_l = part_ids.long()
+    d, p_max = codes.shape[-1], codes.shape[1]
+    n_q = beta.shape[0]
+    pc = codes[pid_l].reshape(-1, d).to(torch.float32)
+    dots = f32_matmul(q_i8.to(torch.float32), pc.T)
+    s = norms[pid_l].reshape(1, -1) - 2.0 * (
+        alpha[:n_q, None] * dots[:n_q] + alpha[n_q:, None] * dots[n_q:]
+        + beta[:, None])
+    ok = valid[pid_l].reshape(1, -1)
+    if filt is not None:
+        ok = ok & filt[0](filt[1][pid_l]).reshape(1, -1)
+    if qsel is not None:
+        ok = ok & qsel.repeat_interleave(p_max, dim=1)
+    s = s.masked_fill(~ok, float("inf"))
+    return torch.topk(s, k_out, dim=1, largest=False)
+
+
+def same_bits(a, b):
+    import torch
+    torch.cuda.synchronize()
+    return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# the predicates of the program-route checks: the hybrid phase's selective
+# one, the post-filter one, and an And / Or tree with a `ne`
+def program_preds():
+    from repro_torch.core.hybrid import And, Or, Pred
+    return [("attr1<0.0005", Pred(1, "<", 0.0005)),
+            ("attr0==3", Pred(0, "==", 3)),
+            ("tree", And((Pred(0, "!=", 2),
+                          Or((Pred(1, "<", 0.3), Pred(0, ">=", 8))))))]
+
+
+def route_times(prog, mask, plain, lib, kernels, bound):
+    """Times of one program-route scan: through the wrapper (median of 3
+    windows), its kernels' device time, the mask route as the executor
+    ran it before (the whole-index keep mask, then the scan), the plain
+    version and the library yardstick, beside the bound."""
+    return dict(ms=cuda_ms(prog, reps=3),
+                device_ms=kernel_device_ms(prog, kernels),
+                mask_route_ms=cuda_ms(mask, reps=3),
+                plain_ms=cuda_ms(plain, iters=2),
+                library_ms=cuda_ms(lib, iters=2), **bound)
+
+
+def check_program_route(idx, cases, res, timed):
+    """K1 and K2 with the predicate program evaluated in the scan, at the
+    main path's shapes (ANN Q=512: K1 k_out=100, K2 k_out=400 over the
+    norms; exact Q=8: K1 k_out=100 with row sharing), for each of
+    program_preds(): bit for bit against the mask route (the same kernel
+    fed f(attrs) as its keep mask) and against the plain version (ids;
+    K2's scores bit for bit). Timed when `timed`; the entries land in
+    res[kernel]["program"]."""
+    import torch
+    from repro_torch.core import quantize
+    from repro_torch.core.hybrid import compile_filter
+    from repro_torch.core.types import QuantStats
+    from repro_torch.kernels import ivf_scan, sq_scan
+    vec, valid, ids, attrs = idx["vectors"], idx["valid"], idx["ids"], \
+        idx["attrs"]
+    codes, norms, lo, scale = idx["codes"], idx["norms"], idx["lo"], \
+        idx["scale"]
+    kp, p_max, d = vec.shape
+    n_attr = attrs.shape[-1]
+    v2_max = float(torch.sum(vec * vec, dim=-1).max())
+    stats = QuantStats(lo=lo, scale=scale)
+    fails = []
+    for kname in ("ivf_scan_topk", "sq_scan_topk"):
+        res[kname].setdefault("program", [])
+    for label, q, part_ids, qsel, k_out in cases:
+        if label not in ("ann Q=512", "exact Q=8"):
+            continue
+        n_q = q.shape[0]
+        tol = topk_tol(q, v2_max)
+        q_i8, alpha, beta = quantize.fold_queries(stats, q)
+        k_sq = min(4 * k_out, part_ids.shape[0] * p_max)
+        for pname, pred in program_preds():
+            f = compile_filter(pred)
+            keep = f(attrs)
+            k1 = (q, vec, valid, ids, part_ids, k_out)
+
+            def k1_prog():
+                return ivf_scan.ivf_scan_topk(*k1, qsel=qsel, attrs=attrs,
+                                              program=f.program)
+
+            def k1_mask():
+                return ivf_scan.ivf_scan_topk(*k1, qsel=qsel, keep=f(attrs))
+            got = k1_prog()
+            same = same_bits(got, ivf_scan.ivf_scan_topk(*k1, qsel=qsel,
+                                                         keep=keep))
+            err, ok = compare(ivf_scan.ivf_scan_plain(
+                *k1, qsel=qsel, attrs=attrs, program=f.program), got, tol,
+                f"ivf_scan program {label} {pname}")
+            log(f"  ivf_scan program {label} {pname}: bit for bit equal to "
+                f"the mask route: {same}")
+            r = res["ivf_scan_topk"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if not (same and ok):
+                fails.append(f"ivf_scan {label} {pname}")
+            if timed:
+                e = route_times(
+                    k1_prog, k1_mask, lambda: ivf_scan.ivf_scan_plain(
+                        *k1, qsel=qsel, attrs=attrs, program=f.program),
+                    lambda: lib_scan_f32(q, vec, valid, part_ids, qsel,
+                                         k_out, filt=(f, attrs)),
+                    K1_KERNELS, bound_of(*k1_bound(
+                        part_ids, qsel, valid, n_q, d, p_max, k_out,
+                        keep=keep, n_attr=n_attr)))
+                e.update(shape=f"{label} k_out={k_out}", pred=pname,
+                         max_abs_err=err, mask_bitwise=same)
+                r["program"].append(e)
+            if qsel is None:
+                continue            # the int8 tier serves ANN plans only
+            k2 = (q_i8, alpha, beta, lo, scale, codes, valid, None,
+                  part_ids, k_sq)
+
+            def k2_prog():
+                return sq_scan.sq_scan_folded(*k2, qsel=qsel, norms=norms,
+                                              attrs=attrs, program=f.program)
+
+            def k2_mask():
+                return sq_scan.sq_scan_folded(*k2, qsel=qsel, norms=norms,
+                                              keep=f(attrs))
+            got = k2_prog()
+            same = same_bits(got, sq_scan.sq_scan_folded(
+                *k2, qsel=qsel, norms=norms, keep=keep))
+            plain = sq_scan.sq_scan_plain(*k2, qsel=qsel, norms=norms,
+                                          attrs=attrs, program=f.program)
+            exact = same_bits(plain, got)
+            err = float((plain[0] - got[0]).abs().max())
+            log(f"  sq_scan program {label} {pname}: bit for bit equal to "
+                f"the mask route: {same}, to the plain version: {exact}")
+            r = res["sq_scan_topk"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if not (same and exact):
+                fails.append(f"sq_scan {label} {pname}")
+            if timed:
+                e = route_times(
+                    k2_prog, k2_mask, lambda: sq_scan.sq_scan_plain(
+                        *k2, qsel=qsel, norms=norms, attrs=attrs,
+                        program=f.program),
+                    lambda: lib_scan_int8(q_i8, alpha, beta, codes, norms,
+                                          valid, part_ids, qsel, k_sq,
+                                          filt=(f, attrs)),
+                    K2_KERNELS, bound_of(*k2_bound(
+                        part_ids, qsel, valid, n_q, d, p_max, k_sq,
+                        keep=keep, n_attr=n_attr)))
+                e.update(shape=f"{label} k_out={k_sq}", pred=pname,
+                         max_abs_err=err, mask_bitwise=same)
+                r["program"].append(e)
+    check(not fails, f"the program route disagrees: {fails}")
+    if timed:
+        for kname in ("ivf_scan_topk", "sq_scan_topk"):
+            for e in res[kname]["program"]:
+                log(f"  time {kname} program [{e['shape']} {e['pred']}]: "
+                    f"kernel {e['ms']:.4f} ms, device "
+                    f"{fmt_ms(e['device_ms'])}, mask route (mask + scan) "
+                    f"{e['mask_route_ms']:.4f} ms, plain {e['plain_ms']:.4f}"
+                    f" ms, library {e['library_ms']:.4f} ms, bound "
+                    f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
 
 
 def check_kernels(idx, cases, batch, timed):
@@ -366,6 +591,10 @@ def check_kernels(idx, cases, batch, timed):
 
     for name, r in res.items():
         check(r["ids_equal"], f"{name} disagrees with its plain version")
+    if "program" in inspect.signature(ivf_scan.ivf_scan_topk).parameters:
+        check_program_route(idx, cases, res, timed)
+    else:       # an older tree's src (--src): no predicate program route
+        log("  no predicate program route in this src: not checked")
     if not timed:
         return res
 
@@ -376,16 +605,7 @@ def check_kernels(idx, cases, batch, timed):
     # kernels in a profiler trace: the gap is the wrapper's host work
     # (checks, allocations, ctypes), not kernel time.
     def lib_k1(q, part_ids, qsel, k_out):
-        """K1's function in one dense product + topk over every probed
-        row: the yardstick (exactly K1's work on the exact route)."""
-        pid_l = part_ids.long()
-        pv = vec[pid_l].reshape(-1, d)
-        s = torch.sum(pv * pv, -1)[None, :] - 2.0 * f32_matmul(q, pv.T)
-        ok = valid[pid_l].reshape(1, -1)
-        if qsel is not None:
-            ok = ok & qsel.repeat_interleave(p_max, dim=1)
-        s = s.masked_fill(~ok, float("inf"))
-        return torch.topk(s, k_out, dim=1, largest=False)
+        return lib_scan_f32(q, vec, valid, part_ids, qsel, k_out)
 
     for label, q, part_ids, qsel, k_out in cases:
         q_i8, alpha, beta = quantize.fold_queries(stats, q)
@@ -420,6 +640,8 @@ def check_kernels(idx, cases, batch, timed):
             # and the dense yardstick, which does exactly K1's work here
             ex = dict(shape=f"Q={n_q} n={part_ids.shape[0]} k_out={k_out}",
                       ms=t1, device_ms=t1_dev, bound_ms=b1,
+                      plain_ms=cuda_ms(lambda: ivf_scan.ivf_scan_plain(
+                          q, vec, valid, ids, part_ids, k_out), iters=3),
                       library_ms=cuda_ms(lambda: lib_k1(q, part_ids, None,
                                                         k_out), iters=3))
             group = getattr(ivf_scan, "MAX_GROUP", None)
@@ -431,8 +653,8 @@ def check_kernels(idx, cases, batch, timed):
                         k1_call, K1_KERNELS)
                 finally:
                     ivf_scan.MAX_GROUP = group
-            log(f"  time {label} ivf_scan: library {ex['library_ms']:.4f} "
-                f"ms; without row sharing "
+            log(f"  time {label} ivf_scan: plain {ex['plain_ms']:.4f} ms, "
+                f"library {ex['library_ms']:.4f} ms; without row sharing "
                 f"{fmt_ms(ex.get('no_row_sharing_ms'))}, device "
                 f"{fmt_ms(ex.get('no_row_sharing_device_ms'))}")
             res["ivf_scan_topk"]["exact"] = ex
@@ -441,7 +663,6 @@ def check_kernels(idx, cases, batch, timed):
     label, q, part_ids, qsel, k_out = timing_case
     n = part_ids.shape[0]
     n_q = q.shape[0]
-    pid_l = part_ids.long()
 
     k1 = res["ivf_scan_topk"]
     k1["ms"] = cuda_ms(lambda: ivf_scan.ivf_scan_topk(
@@ -459,16 +680,8 @@ def check_kernels(idx, cases, batch, timed):
     k_sq = min(4 * k_out, n * p_max)
 
     def lib_k2():
-        pc = codes[pid_l].reshape(-1, d).to(torch.float32)
-        dots = f32_matmul(q_i8.to(torch.float32), pc.T)
-        s = norms[pid_l].reshape(1, -1) - 2.0 * (
-            alpha[:n_q, None] * dots[:n_q] + alpha[n_q:, None] * dots[n_q:]
-            + beta[:, None])
-        ok = valid[pid_l].reshape(1, -1)
-        if qsel is not None:
-            ok = ok & qsel.repeat_interleave(p_max, dim=1)
-        s = s.masked_fill(~ok, float("inf"))
-        return torch.topk(s, k_sq, dim=1, largest=False)
+        return lib_scan_int8(q_i8, alpha, beta, codes, norms, valid,
+                             part_ids, qsel, k_sq)
 
     k2 = res["sq_scan_topk"]
     k2["ms"] = cuda_ms(lambda: sq_scan.sq_scan_folded(
@@ -560,9 +773,13 @@ def quick():
                        device=dev).reshape(kp, p_max)
     stats = quantize.train(vec.reshape(-1, d))
     codes = quantize.encode(stats, vec)
+    attrs = torch.stack([torch.randint(0, 10, (kp, p_max), generator=g,
+                                       device=dev).float(),
+                         torch.rand((kp, p_max), generator=g, device=dev)],
+                        -1)
     idx = dict(vectors=vec, valid=valid, ids=ids, codes=codes, lo=stats.lo,
                scale=stats.scale, norms=quantize.row_norms(stats, codes),
-               centroids=vec[:, 0, :].contiguous())
+               centroids=vec[:, 0, :].contiguous(), attrs=attrs)
     queries = vec[:512, 1, :] + 0.1 * torch.randn((512, d), generator=g,
                                                   device=dev)
     cases = random_probe_cases(kp, dev, g, queries)
@@ -585,6 +802,7 @@ class StepTimers:
     def __init__(self, targets):
         self.targets = targets           # (owner, attribute name) pairs
         self.secs = {}
+        self.events = []                 # (label, start, seconds) per call
         self._saved = []
 
     def __enter__(self):
@@ -599,8 +817,9 @@ class StepTimers:
                     return _fn(*a, **k)
                 finally:
                     torch.cuda.synchronize()
-                    self.secs[_label] = self.secs.get(_label, 0.0) \
-                        + time.perf_counter() - t0
+                    dt = time.perf_counter() - t0
+                    self.secs[_label] = self.secs.get(_label, 0.0) + dt
+                    self.events.append((_label, t0, dt))
             self._saved.append((owner, name, fn))
             setattr(owner, name, timed)
         return self
@@ -778,13 +997,20 @@ def main_path():
         f"tolerance: {swaps})")
     check(r_ex == 1.0, "exact recall@100 is not 1.000")
     spec_pf = QB.knn(k=100, n_probe=8).where(Pred(0, "==", 3)).postfilter()
-    rs, ms = timed_query(eng, queries[:32], spec_pf)
-    lat["postfilter_Q32_ms"] = ms
+    # the same spec on the mask route too (an opaque callable: the engine
+    # evaluates the whole-index keep mask and the scan reads it)
+    rs, same, qs, qs_m = program_vs_mask(eng, queries[:32], spec_pf)
+    lat["postfilter_Q32_ms"], ms = qs[1], qs[1]
+    lat["postfilter_mask_route_Q32_ms"], ms_m = qs_m[1], qs_m[1]
     pf_ids = rs.to_numpy()[0]
     got = pf_ids[pf_ids >= 0]
     check(got.size > 0, "post-filter query returned nothing")
     check((attrs[got, 0] == 3).all(), "post-filter result breaks predicate")
-    log(f"post-filter: {got.size} hits, all satisfy attr0 == 3")
+    log(f"post-filter: {got.size} hits, all satisfy attr0 == 3; 30 runs "
+        f"each, alternating: program route {fmt_q(qs)}, mask route "
+        f"{fmt_q(qs_m)}; ids and scores bit for bit equal: {same}")
+    check(same, "the post-filter program route differs from the mask "
+          "route")
     for k_, v_ in lat.items():
         log(f"latency {k_}: {v_:.3f}")
 
@@ -807,6 +1033,12 @@ def main_path():
     check(victim not in set(rs.to_numpy()[0][0].tolist()),
           "a deleted row is still returned")
     log(f"writes: 8 upserts found at rank 0, deleted id {victim} gone")
+    main_counts = {k_: c + main_counts[k_]
+                   for k_, c in ops.launch_counts().items()}
+    out["maintenance"] = maintenance_phase(
+        eng, dict(X=X, queries=queries, Xg=Xg, qg=qg, v2_max=v2_max,
+                  new_ids=new_ids, new_vecs=new_vecs, victim=victim))
+    ops.reset_launch_counts()
 
     # -- recover into a second engine ----------------------------------------
     t0 = time.perf_counter()
@@ -842,6 +1074,47 @@ def main_path():
     ctx = dict(eng=eng, eng2=eng2, db=db, X=X, attrs=attrs, queries=queries,
                Xg=Xg, x2=x2, qg=qg, gt=gt, v2_max=v2_max)
     return ctx, out
+
+
+def quartiles(xs):
+    """(lower quartile, median, upper quartile) of a sample."""
+    import statistics
+    q1, q2, q3 = statistics.quantiles(xs, n=4)
+    return q1, q2, q3
+
+
+def program_vs_mask(eng, q, spec, reps=30):
+    """The spec on the program route and on the mask route (mask_route),
+    alternately `reps` times each through MicroNN.query: (program result,
+    whether the mask route's ids and scores equal it bit for bit, program
+    ms quartiles, mask-route ms quartiles). Host-clock latencies of ~3 ms
+    spread by tenths of a ms, so one run of each would not order them."""
+    import numpy as np
+    spec_m = mask_route(spec)
+    rs, ms_p = timed_query(eng, q, spec, reps=1)
+    rs_m, ms_m = timed_query(eng, q, spec_m, reps=1)
+    same = all(np.array_equal(a, b) for a, b in zip(rs.to_numpy(),
+                                                    rs_m.to_numpy()))
+    tp, tm = [], []
+    for _ in range(reps):
+        tp.append(timed_query(eng, q, spec, reps=1)[1])
+        tm.append(timed_query(eng, q, spec_m, reps=1)[1])
+    return rs, same, quartiles(tp), quartiles(tm)
+
+
+def fmt_q(qs):
+    return f"{qs[1]:.3f} ms (quartiles {qs[0]:.3f} / {qs[2]:.3f})"
+
+
+def mask_route(spec):
+    """The same spec with its predicate as an opaque callable: the engine
+    then evaluates the keep mask over the whole index before the scan (the
+    route an opaque filter takes), a check of the program route only."""
+    import dataclasses
+    from repro_torch.core.hybrid import compile_filter
+    f = compile_filter(spec.predicate)
+    return dataclasses.replace(spec, predicate=lambda a: f(a),
+                               hybrid="post")
 
 
 def filtered_oracle(Xg, x2, q, keep, k):
@@ -897,20 +1170,236 @@ def hybrid_phase(eng, queries, attrs, Xg, x2, qg, v2_max, pf_ids):
         f"f_filters={dec_b.f_filters:.6g}, f_ivf={dec_b.f_ivf:.6g}")
     check(dec_b.plan == "post", "the broad predicate did not resolve to "
           "the post-filter plan")
-    rs_b, ms_b = timed_query(eng, queries[:32],
-                             QB.knn(k=100, n_probe=8).where(broad))
+    spec_auto = QB.knn(k=100, n_probe=8).where(broad)
+    rs_b, same, qs_b, qs_m = program_vs_mask(eng, queries[:32], spec_auto)
+    ms_b, ms_m = qs_b[1], qs_m[1]
     check(np.array_equal(rs_b.to_numpy()[0], pf_ids),
           "auto did not return the explicit post-filter query's ids")
     counts = ops.launch_counts()
-    log(f"hybrid post-filter (auto) Q=32: {ms_b:.3f} ms, ids equal to the "
-        f"explicit post-filter query; launches on the hybrid path: {counts}")
+    log(f"hybrid post-filter (auto) Q=32, 30 runs each, alternating: "
+        f"program route {fmt_q(qs_b)}, ids equal to the explicit "
+        f"post-filter query; mask route {fmt_q(qs_m)}, ids and scores bit "
+        f"for bit equal: {same}; launches on the hybrid path: {counts}")
+    check(same, "the auto->post program route differs from the mask route")
     check(counts["ivf_scan_topk"] > 0,
           "ivf_scan_topk was not launched on the pre-filter path")
     out.update(decision=dec.plan, f_filters=dec.f_filters, f_ivf=dec.f_ivf,
                cap=dec.prefilter_cap, qualifying_rows=n_ok,
                recall=r_pre, swaps=swaps, pre_Q32_ms=ms, post_Q32_ms=ms_b,
-               launches=counts, seconds=time.perf_counter() - t0)
+               post_mask_route_Q32_ms=ms_m, launches=counts,
+               seconds=time.perf_counter() - t0)
     log(f"phase hybrid: {out['seconds']:.2f} s")
+    return out
+
+
+# the maintenance phase's time budget, from which its step count follows
+MAINT_BUDGET_S = 60.0
+
+
+def maintenance_targets():
+    from repro_torch.core import maintenance
+    from repro_torch.core.monitor import IndexMonitor
+    from repro_torch.storage.scheduler import MaintenanceScheduler
+    from repro_torch.storage.store import VectorStore
+    return [(MaintenanceScheduler, "step"), (IndexMonitor, "work_queue"),
+            (maintenance, "plan_split"), (maintenance, "plan_merge"),
+            (maintenance, "plan_local_recluster"),
+            (maintenance, "apply_plan"), (maintenance, "flush_delta"),
+            (maintenance, "repack_partition"),
+            (VectorStore, "apply_repair"), (VectorStore, "partitions_for"),
+            (VectorStore, "codes_for"), (VectorStore, "set_code_tier"),
+            (VectorStore, "set_maintenance_state")]
+
+
+# step-timer labels by the part of a maintenance step they belong to
+MAINT_PARTS = {"work_queue": ("IndexMonitor.work_queue",),
+               "plan": ("maintenance.plan_split", "maintenance.plan_merge",
+                        "maintenance.plan_local_recluster"),
+               "device_apply": ("maintenance.apply_plan",
+                                "maintenance.flush_delta",
+                                "maintenance.repack_partition"),
+               "sqlite": ("VectorStore.apply_repair",
+                          "VectorStore.partitions_for",
+                          "VectorStore.codes_for",
+                          "VectorStore.set_code_tier",
+                          "VectorStore.set_maintenance_state")}
+
+
+def each_action_steps(eng):
+    """One step of every other action on the 1M engine, after the drain
+    (whose steps are all splits: 1,514 lead the queue): the queue's first
+    merge and its flush of the writes' delta (durable), then a local
+    recluster of the most drifted partition and a repack of the one with
+    the most tombstones (neither is queued: the build leaves no drift and
+    one delete no tombstone share near the bar). Each goes through the
+    scheduler's callback (MicroNN._execute_work_item), timed by part, and
+    must report a step. -> per-action rows."""
+    import torch
+    from repro_torch.core.monitor import WorkItem
+    queue = eng.monitor.work_queue(eng.index)
+    picks = {}
+    for it in queue:
+        if it.action in ("merge", "flush"):
+            picks.setdefault(it.action, it)
+    check(set(picks) == {"merge", "flush"},
+          f"the queue holds no merge or no flush: {sorted(picks)}")
+    out = []
+    for action in ("merge", "flush", "recluster", "repack"):
+        idx = eng.index
+        counts = idx.counts.cpu().numpy()
+        if action == "recluster":
+            p = int(torch.argmax(idx.drift[:idx.k]))
+            picks[action] = WorkItem("recluster", (p,), int(counts[p]), 1.0)
+        elif action == "repack":
+            dead = ((idx.ids != -1) & ~idx.valid).sum(-1)
+            p = int(torch.argmax(dead))
+            picks[action] = WorkItem("repack", (p,), int(counts[p]), 3.0)
+        item = picks[action]
+        p_max0, drift0 = idx.p_max, float(idx.drift.max())
+        dead0 = int(((idx.ids != -1) & ~idx.valid).sum())
+        with StepTimers(maintenance_targets()) as tm:
+            t0 = time.perf_counter()
+            rep_ = eng._execute_work_item(item,
+                                          eng.scheduler.max_rows_per_step)
+            torch.cuda.synchronize()
+            sdt = time.perf_counter() - t0
+        check(rep_ is not None, f"the {action} step planned to a no-op")
+        parts = {name: sum(dt for lab, _, dt in tm.events
+                           if lab.endswith(labels))
+                 for name, labels in MAINT_PARTS.items()}
+        idx = eng.index
+        row = dict(action=action, pids=list(rep_.pids), rows=rep_.rows,
+                   bytes_written=rep_.bytes_written, seconds=sdt,
+                   p_max=[p_max0, idx.p_max], **parts)
+        out.append(row)
+        log(f"  maint {action} {list(item.pids)} rows {rep_.rows}: {sdt:.3f}"
+            f" s (plan {parts['plan']:.3f}, device apply "
+            f"{parts['device_apply']:.3f}, sqlite {parts['sqlite']:.3f}); "
+            f"p_max {p_max0} -> {idx.p_max}, delta live "
+            f"{int(idx.delta.valid.sum())}, max drift {drift0:.4f} -> "
+            f"{float(idx.drift.max()):.4f}, tombstones {dead0} -> "
+            f"{int(((idx.ids != -1) & ~idx.valid).sum())}")
+    check(int(eng.index.delta.valid.sum()) == 0,
+          "the flush step left rows in the delta")
+    return out
+
+
+def maintenance_phase(eng, ctx):
+    """Incremental maintenance on the main path's 1M engine, after the
+    writes and before recover (so recover and the paged phase read the
+    repaired file): the monitor's verdict and work queue, then
+    maintain(until_idle=True, max_steps=S) with S sized from one measured
+    work_queue call to fit MAINT_BUDGET_S, each step split into work_queue,
+    plan, device apply and SQLite, then one step of each other action
+    (each_action_steps). Then, as hard checks: exact recall@100
+    = 1.000 on 8 oracle queries, ANN recall@100 at n_probe 8 over the 512
+    queries within 0.01 of its value before, the upserts still found at
+    once and the deleted row still gone."""
+    import collections
+    import torch
+    from repro_torch.core import maintenance
+    from repro_torch.core import monitor as monitor_mod
+    from repro_torch.core.query import Q as QB
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    queries, qg, Xg = ctx["queries"], ctx["qg"], ctx["Xg"]
+    new_ids, new_vecs, victim = ctx["new_ids"], ctx["new_vecs"], \
+        ctx["victim"]
+    # the oracle over the live rows: the victim gone, the upserts in (row
+    # index == asset id)
+    Xl = torch.cat([Xg, torch.from_numpy(new_vecs).cuda()])
+    x2l = torch.sum(Xl * Xl, dim=1)
+    x2l[victim] = float("inf")
+    gt = oracle_topk(Xl, x2l, qg, 100)
+    gt_np = gt.cpu().numpy()
+    knn = QB.knn(k=100, n_probe=8)
+    r_before = recall(eng.query(queries, knn).to_numpy()[0], gt_np)
+    health = eng.monitor.check(eng.index)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    items = eng.monitor.work_queue(eng.index)
+    torch.cuda.synchronize()
+    wq_s = time.perf_counter() - t0
+    by_action = dict(collections.Counter(it.action for it in items))
+    # where a work_queue call goes: the blocked centroid spacing (device)
+    # and the merge loop's partner choices (host), in a second call
+    with StepTimers([(monitor_mod, "centroid_spacing"),
+                     (maintenance, "choose_merge_partner")]) as wq_tm:
+        eng.monitor.work_queue(eng.index)
+    wq_parts = {lab.rsplit(".", 1)[-1]: sec
+                for lab, sec in wq_tm.secs.items()}
+    n_partner = sum(1 for e in wq_tm.events
+                    if e[0].endswith("choose_merge_partner"))
+    log(f"maintenance: monitor verdict {health.action} (growth "
+        f"{health.growth:.4f}, tombstones {health.tombstone_fraction:.2e}, "
+        f"delta pressure {health.delta_pressure:.4f}); work queue "
+        f"{len(items)} items {by_action}; one work_queue call "
+        f"{wq_s:.3f} s at k={eng.index.k}: centroid_spacing "
+        f"{wq_parts.get('centroid_spacing', 0.0):.3f} s, "
+        f"{n_partner} choose_merge_partner calls "
+        f"{wq_parts.get('choose_merge_partner', 0.0):.3f} s (timed one "
+        f"by one, in a second call)")
+    # every step polls the queue afresh (one work_queue call), plans,
+    # applies on the device and commits to SQLite: budget ~2 work_queue
+    # calls + 0.3 s a step
+    steps = int(max(4, min(64, MAINT_BUDGET_S / (2 * wq_s + 0.3))))
+    log(f"maintenance: S = {steps} steps (MAINT_BUDGET_S {MAINT_BUDGET_S} "
+        f"s / (2 x work_queue {wq_s:.3f} s + 0.3 s), within [4, 64])")
+    t0 = time.perf_counter()
+    with StepTimers(maintenance_targets()) as tm:
+        reports = eng.maintain(until_idle=True, max_steps=steps)
+    drain_s = time.perf_counter() - t0
+    rows = []
+    step_events = [e for e in tm.events
+                   if e[0] == "MaintenanceScheduler.step"]
+    for i, ((_, st0, sdt), rep_) in enumerate(zip(step_events, reports)):
+        parts = {name: sum(dt for lab, t, dt in tm.events
+                           if lab.endswith(labels) and st0 <= t <= st0 + sdt)
+                 for name, labels in MAINT_PARTS.items()}
+        rows.append(dict(action=rep_.action, pids=list(rep_.pids),
+                         rows=rep_.rows, bytes_written=rep_.bytes_written,
+                         seconds=sdt, **parts))
+        log(f"  maint step {i}: {rep_.action} {rep_.pids} rows {rep_.rows}"
+            f": {sdt:.3f} s (work_queue {parts['work_queue']:.3f}, plan "
+            f"{parts['plan']:.3f}, device apply {parts['device_apply']:.3f}"
+            f", sqlite {parts['sqlite']:.3f})")
+    tm.report("maintenance")
+    done = collections.Counter(r.action for r in reports)
+    log(f"maintenance: {len(reports)} steps in {drain_s:.2f} s {dict(done)}"
+        f"; k={eng.index.k} p_max={eng.index.p_max}; scheduler "
+        f"{eng.scheduler.stats()}")
+    check(len(reports) > 0, "maintenance ran no step")
+    each = each_action_steps(eng)
+    # -- checks on the repaired index -----------------------------------------
+    n_ex = 8
+    ex = torch.as_tensor(eng.query(queries[:n_ex], QB.exact(k=100))
+                         .to_numpy()[0]).cuda()
+    r_ex, swaps = exact_recall(Xl, qg[:n_ex], ex, gt[:n_ex], ctx["v2_max"])
+    r_after = recall(eng.query(queries, knn).to_numpy()[0], gt_np)
+    log(f"maintenance: exact recall@100 Q={n_ex} {r_ex:.4f} (swaps "
+        f"{swaps}); ANN recall@100 n_probe 8 Q={len(queries)}: before "
+        f"{r_before:.4f}, after {r_after:.4f}")
+    check(r_ex == 1.0, "exact recall@100 after maintenance is not 1.000")
+    check(abs(r_after - r_before) <= 0.01, "ANN recall moved by more than "
+          "0.01 through maintenance")
+    rs = eng.query(new_vecs, QB.knn(k=10, n_probe=8)).to_numpy()[0]
+    check((rs[:, 0] == new_ids).all(), "an upserted row is not found at "
+          "rank 0 after maintenance")
+    rs = eng.query(ctx["X"][victim:victim + 1], QB.knn(k=10, n_probe=8))
+    check(victim not in set(rs.to_numpy()[0][0].tolist()),
+          "the deleted row came back after maintenance")
+    counts = ops.launch_counts()
+    out = dict(verdict=health.action, queue=by_action,
+               work_queue_s=wq_s, work_queue_parts=wq_parts,
+               merge_partner_calls=n_partner, k=eng.index.k,
+               max_steps=steps,
+               steps=rows, drain_s=drain_s, each_action=each,
+               recall_before=r_before,
+               recall_after=r_after, exact_recall=r_ex, launches=counts,
+               seconds=time.perf_counter() - t_phase)
+    log(f"phase maintenance: {out['seconds']:.1f} s; launches (its check "
+        f"queries) {counts}")
     return out
 
 
@@ -965,13 +1454,24 @@ def paged_phase(ctx):
                          device_bytes_held=held)
         for nq in sizes:
             for rep in ("cold", "warm"):
-                s0 = pag.stats()
+                # the pool's counters (MicroNN.stats() adds the
+                # scheduler's queue depth: a work_queue call each)
+                s0 = pag.index.cache.stats()
+                # int8 Q=512 seats no working set (warm = cold): its warm
+                # batch is the one the fault path's steps are timed on
+                timed_steps = tier == "int8" and nq == 512 and rep == "warm"
+                tm = StepTimers(paged_fault_targets() if timed_steps
+                                else [])
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                rs = pag.query(queries[:nq], specq)
-                ids, sc = rs.to_numpy()
+                with tm:
+                    rs = pag.query(queries[:nq], specq)
+                    ids, sc = rs.to_numpy()
                 ms = (time.perf_counter() - t0) * 1e3
-                s1 = pag.stats()
+                if timed_steps:
+                    log(f"paged int8 Q=512 with step timers: {ms:.2f} ms")
+                    tm.report("paged int8 Q=512")
+                s1 = pag.index.cache.stats()
                 row = dict(tier=tier, Q=nq, rep=rep, ms=ms, **{
                     k_: s1[k_] - s0[k_] for k_ in
                     ("hits", "misses", "evictions", "bytes_read",
@@ -1005,7 +1505,7 @@ def paged_phase(ctx):
     r_ann = recall(ref[("int8", 512)][0][:8], ctx["gt"][:8].cpu().numpy())
     log(f"paged exact (int8 pool) Q=8: {ms:.1f} ms, recall@100 {r_ex:.4f} "
         f"(resident int8 n_probe 8 on the same queries: {r_ann:.4f}); "
-        f"pool stats {pag.stats()}")
+        f"pool stats {pag.index.cache.stats()}")
     check(r_ex >= r_ann, "paged exact recall is below the n_probe-8 recall")
     counts = ops.launch_counts()
     log(f"launches on the paged path: {counts}")
@@ -1073,14 +1573,91 @@ def paged_build_phase(ctx):
         f"{r:.4f} (resident in-memory build of the same rows: {r_ref:.4f})")
     check(r >= r_ref - 0.02, "the paged build's recall@100 is more than "
           "0.02 below the resident build's")
-    k = int(pb.index.k)
-    pb.close()
-    _rm_db(db)
     log(f"phase paged build: {time.perf_counter() - t_phase:.1f} s")
     return dict(rows=n, ingest_s=ingest_s, build_s=build_s,
                 kmeans_assign_s=tm.secs.get("MiniBatchKMeans.assign"),
                 steps=dict(tm.secs), recall=r, resident_recall=r_ref,
-                launches=counts, k=k)
+                launches=counts, k=int(pb.index.k)), pb
+
+
+REBUILD_NEW_ROWS = 800       # 0.78 of the default delta: a flush verdict
+
+
+def rebuild_phase(ctx, pb):
+    """Whole-index maintenance on the paged build's 100,000-row file (cut
+    from 1M: a rebuild rewrites every row's partition in SQLite, minutes
+    at 1M): REBUILD_NEW_ROWS upserts, then maintain() with no `force` must
+    act on the monitor's verdict (delta pressure: "flush"); then
+    maintain(force="rebuild") on the paged engine and on the same file
+    opened resident, each of which must launch K3 (its counts read per
+    path) and keep every row, with recall@100 against the oracle of those
+    rows within 0.02 of a resident in-memory build of the same rows (the
+    paged build phase's criterion; the phase's queries lie near the 1M
+    set, so their neighbours among these rows are far and recall is
+    low for every build)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import executor, ivf
+    from repro_torch.core.query import Q as QB
+    from repro_torch.kernels import ops
+    from repro_torch.storage.engine import MicroNN
+    t_phase = time.perf_counter()
+    X, attrs, queries = ctx["X"], ctx["attrs"], ctx["queries"]
+    n, m = PAGED_BUILD_ROWS, REBUILD_NEW_ROWS
+    knn = QB.knn(k=100, n_probe=8)
+    out = {}
+    for mode in ("paged", "resident"):
+        if mode == "resident":
+            db = pb.store.path
+            pb.close()
+            pb = MicroNN(dim=X.shape[1], n_attr=2, path=db, quantize="int8",
+                         rerank_factor=4)
+            pb.recover()
+        lo, hi = n + (m if mode == "resident" else 0), \
+            n + (2 * m if mode == "resident" else m)
+        pb.upsert(np.arange(lo, hi), X[lo:hi], attrs[lo:hi])
+        verdict = pb.monitor.check(pb.index).action if mode == "resident" \
+            else None
+        got = pb.maintain()
+        log(f"rebuild {mode}: {m} upserts, then maintain() -> {got} "
+            f"(delta {pb.index.delta.count} of {pb.index.delta.capacity}"
+            + (f"; monitor verdict {verdict}" if verdict else "") + ")")
+        check(got == "flush", f"{mode}: maintain() did not take the "
+              f"delta-pressure flush")
+        check(verdict in (None, got), f"{mode}: maintain() did not act on "
+              f"the monitor's verdict")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        check(pb.maintain(force="rebuild") == "rebuild",
+              f"{mode}: the forced rebuild did not run")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(counts["kmeans_assign"] > 0, f"kmeans_assign was not "
+              f"launched on the {mode} rebuild")
+        check(pb.index.num_live() == hi, f"{mode} rebuild lost rows")
+        gt = oracle_topk(ctx["Xg"][:hi], ctx["x2"][:hi], ctx["qg"][:32],
+                         100).cpu().numpy()
+        r = recall(pb.query(queries[:32], knn).to_numpy()[0], gt)
+        ref = ivf.build_index(X[:hi], np.arange(hi, dtype=np.int32),
+                              attrs[:hi], cfg=pb.config, device=pb.device)
+        r_ref = recall(executor.run(ref, queries[:32], knn).to_numpy()[0],
+                       gt)
+        del ref
+        log(f"rebuild {mode}: {secs:.1f} s, k={pb.index.k}, {hi} rows; "
+            f"recall@100 n_probe 8 Q=32 {r:.4f} (resident in-memory build "
+            f"of the same rows: {r_ref:.4f}); launches {counts}")
+        check(r >= r_ref - 0.02, f"{mode} rebuild: recall@100 more than "
+              f"0.02 below an in-memory build of the same rows")
+        out[mode] = dict(rebuild_s=secs, k=int(pb.index.k), rows=hi,
+                         recall=r, resident_build_recall=r_ref,
+                         launches=counts)
+    db = pb.store.path
+    pb.close()
+    _rm_db(Path(db))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase rebuild: {out['seconds']:.1f} s")
+    return out
 
 
 def profile_batch(label, run):
@@ -1114,50 +1691,52 @@ def profile_batch(label, run):
 
 def profile_queries(eng, queries):
     """Device busy share of one query batch per tier (and of the exact
-    batch)."""
+    batch), and of the Q=32 batch unfiltered, post-filtered on the program
+    route and on the mask route (what the filtered batch adds on the
+    card)."""
+    from repro_torch.core.hybrid import Pred
     from repro_torch.core.query import Q as QB
     int8 = QB.knn(k=100, n_probe=8)
     f32 = QB.knn(k=100, n_probe=8).quantized(False)
+    post = int8.where(Pred(0, "==", 3)).postfilter()
     for tier, spec, n_q in (("int8", int8, 1), ("int8", int8, 512),
                             ("f32", f32, 1), ("f32", f32, 512),
-                            ("exact", QB.exact(k=100), 8)):
+                            ("exact", QB.exact(k=100), 8),
+                            ("int8", int8, 32),
+                            ("post-filter program", post, 32),
+                            ("post-filter mask route", mask_route(post),
+                             32)):
         profile_batch(f"{tier} Q={n_q}", lambda: eng.query(
             queries[:n_q], spec).to_numpy())
 
 
-def profile_paged(pools, queries):
-    """Where a paged batch spends its time: the device busy share of one
-    Q=32 batch on each pool, and the wall time of the fault path's steps
-    over one Q=512 batch on the int8 pool. The step timers synchronise the
-    device after each step and sum over both threads (the read-ahead
-    thread's stage() overlaps the main thread's scans), so the steps can
-    add up to more than the batch."""
-    import torch
+def paged_fault_targets():
+    """The paged batch's steps: the fault path, the scans, the SQLite
+    rerank. The step timers synchronise the device after each step and
+    sum over both threads (the read-ahead thread's stage() overlaps the
+    main thread's scans), so the steps can add up to more than the
+    batch."""
     from repro_torch.core import executor
-    from repro_torch.core.query import Q as QB
     from repro_torch.fleet.pool import FramePool
     from repro_torch.storage.pager import PartitionCache
     from repro_torch.storage.store import VectorStore
+    return [(FramePool, "fault"), (FramePool, "stage"),
+            (PartitionCache, "_fetch_blocks"),
+            (VectorStore, "scan_partitions"), (FramePool, "_write_frames"),
+            (executor, "fused_sq_scan"), (executor, "merge_topk"),
+            (executor, "_rerank_from_store"), (VectorStore, "vectors_for"),
+            (executor, "_merge_epilogue")]
+
+
+def profile_paged(pools, queries):
+    """The device busy share of one paged Q=32 batch on each pool (the
+    fault path's steps are timed in the paged phase)."""
+    from repro_torch.core.query import Q as QB
     knn = QB.knn(k=100, n_probe=8)
     for tier, pag in pools.items():
         spec = knn.quantized(tier == "int8")
         profile_batch(f"paged {tier} Q=32", lambda: pag.query(
             queries[:32], spec).to_numpy())
-    pag = pools["int8"]
-    with StepTimers([(FramePool, "fault"), (FramePool, "stage"),
-                     (PartitionCache, "_fetch_blocks"),
-                     (VectorStore, "scan_partitions"),
-                     (FramePool, "_write_frames"),
-                     (executor, "fused_sq_scan"), (executor, "merge_topk"),
-                     (executor, "_rerank_from_store"),
-                     (VectorStore, "vectors_for"),
-                     (executor, "_merge_epilogue")]) as tm:
-        t0 = time.perf_counter()
-        pag.query(queries[:512], knn).to_numpy()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    log(f"paged int8 Q=512 with step timers: {wall:.2f} s")
-    tm.report("paged int8 Q=512")
 
 
 def kernel_cases_from_index(idx, queries):
@@ -1182,7 +1761,8 @@ def timed_kernels(idx, queries):
     batch = idx.vectors[idx.valid][:4096].contiguous()
     kidx = dict(vectors=idx.vectors, valid=idx.valid, ids=idx.ids,
                 codes=idx.codes, lo=idx.qstats.lo, scale=idx.qstats.scale,
-                norms=idx.code_norms, centroids=idx.centroids)
+                norms=idx.code_norms, centroids=idx.centroids,
+                attrs=idx.attrs)
     res = check_kernels(kidx, kernel_cases_from_index(idx, queries), batch,
                         timed=True)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
@@ -1222,13 +1802,17 @@ def check_path_routes(res, ctx, pools):
         shape=f"Q=32 n={vpart.numel()} (cap {cap}) p_max={idx.p_max} "
               f"k_out={k_out}", max_abs_err=err, ids_equal=ok,
         ms=cuda_ms(lambda: ivf_scan.ivf_scan_topk(*args), reps=5),
+        device_ms=kernel_device_ms(lambda: ivf_scan.ivf_scan_topk(*args),
+                                   K1_KERNELS),
         plain_ms=cuda_ms(lambda: ivf_scan.ivf_scan_plain(*args), iters=3),
-        bound_ms=1e3 * max(b, o), bound_by="bytes" if b >= o
-        else "operations")
+        library_ms=cuda_ms(lambda: lib_scan_f32(q, sub_v, sub_ok, vpart,
+                                                None, k_out), iters=3),
+        **bound_of(b, o))
     checks = [("ivf_scan_topk", err, ok)]
     q512 = qg[:512]
     qmask = torch.ones((q512.shape[0],), dtype=torch.bool,
                        device=q512.device)
+    f_tree = compile_filter(program_preds()[2][1])
     for tier, kname in (("f32", "ivf_scan_topk"), ("int8", "sq_scan_topk")):
         pag = pools[tier]
         cache = pag.index.cache
@@ -1238,14 +1822,22 @@ def check_path_routes(res, ctx, pools):
         try:
             fidx = torch.as_tensor(frames).cuda()
             cq = qsel[:, :len(pids)].contiguous()
+            pool_attrs = cache.attrs_pool
+            keep = f_tree(pool_attrs)
             if tier == "f32":
                 k_out = 100
                 args = (q512, cache.payload_pool, cache.valid_pool,
-                        cache.ids_pool, fidx, k_out, "l2", cq, None)
-                kern = lambda: ivf_scan.ivf_scan_topk(*args)  # noqa: E731
-                plain = lambda: ivf_scan.ivf_scan_plain(*args)  # noqa: E731
-                b, o = k1_bound(fidx, cq, cache.valid_pool, 512, d,
-                                cache.p_max, k_out)
+                        cache.ids_pool, fidx, k_out, "l2", cq)
+                kw = {}
+                scan, plain_fn = ivf_scan.ivf_scan_topk, \
+                    ivf_scan.ivf_scan_plain
+                lib = lambda f=None: lib_scan_f32(  # noqa: E731
+                    q512, cache.payload_pool, cache.valid_pool, fidx, cq,
+                    k_out, filt=f)
+                bounds = lambda kp=None: k1_bound(  # noqa: E731
+                    fidx, cq, cache.valid_pool, 512, d, cache.p_max, k_out,
+                    keep=kp, n_attr=pool_attrs.shape[-1])
+                kern_names = K1_KERNELS
             else:
                 k_out = 400
                 st = pag.index.qstats
@@ -1253,30 +1845,55 @@ def check_path_routes(res, ctx, pools):
                     QuantStats(lo=st.lo, scale=st.scale), q512)
                 args = (q_i8, alpha, beta, st.lo, st.scale,
                         cache.payload_pool, cache.valid_pool, cache.ids_pool,
-                        fidx, k_out, "l2", cq, None, cache.norms_pool)
-                kern = lambda: sq_scan.sq_scan_folded(*args)  # noqa: E731
-                plain = lambda: sq_scan.sq_scan_plain(*args)  # noqa: E731
-                b, o = k2_bound(fidx, cq, cache.valid_pool, 512, d,
-                                cache.p_max, k_out)
+                        fidx, k_out, "l2", cq)
+                kw = dict(norms=cache.norms_pool)
+                scan, plain_fn = sq_scan.sq_scan_folded, \
+                    sq_scan.sq_scan_plain
+                lib = lambda f=None: lib_scan_int8(  # noqa: E731
+                    q_i8, alpha, beta, cache.payload_pool, cache.norms_pool,
+                    cache.valid_pool, fidx, cq, k_out, filt=f)
+                bounds = lambda kp=None: k2_bound(  # noqa: E731
+                    fidx, cq, cache.valid_pool, 512, d, cache.p_max, k_out,
+                    keep=kp, n_attr=pool_attrs.shape[-1])
+                kern_names = K2_KERNELS
+            kern = lambda: scan(*args, **kw)  # noqa: E731
+            plain = lambda: plain_fn(*args, **kw)  # noqa: E731
+            pkw = dict(kw, attrs=pool_attrs, program=f_tree.program)
             ref, got = plain(), kern()
-            torch.cuda.synchronize()
+            pref, pgot = plain_fn(*args, **pkw), scan(*args, **pkw)
+            mask_same = same_bits(pgot, scan(*args, keep=keep, **kw))
             if tier == "int8":
-                same = torch.equal(ref[0], got[0]) and \
-                    torch.equal(ref[1], got[1])
+                same = same_bits(ref, got) and same_bits(pref, pgot)
                 err = float((ref[0] - got[0]).abs().max())
                 log(f"  sq_scan paged Q={q512.shape[0]}: bit for bit {same} "
-                    f"(max_abs_err={err:.3e})")
-                ok = same
+                    f"(max_abs_err={err:.3e}); program route bit for bit "
+                    f"equal to the mask route: {mask_same}")
+                ok = same and mask_same
             else:
-                err, ok = compare(ref, got, topk_tol(q512, v2_max),
+                tol = topk_tol(q512, v2_max)
+                err, ok = compare(ref, got, tol,
                                   f"ivf_scan paged Q={q512.shape[0]}")
+                err_p, ok_p = compare(pref, pgot, tol,
+                                      f"ivf_scan paged program tree")
+                log(f"  ivf_scan paged program route bit for bit equal to "
+                    f"the mask route: {mask_same}")
+                err, ok = max(err, err_p), ok and ok_p and mask_same
+            shape = (f"Q={q512.shape[0]} frames={len(pids)} of "
+                     f"{cache.capacity} p_max={cache.p_max} k_out={k_out}")
             res[kname]["paged"] = dict(
-                shape=f"Q={q512.shape[0]} frames={len(pids)} of "
-                      f"{cache.capacity} "
-                      f"p_max={cache.p_max} k_out={k_out}",
-                max_abs_err=err, ids_equal=ok, ms=cuda_ms(kern, reps=5),
-                plain_ms=cuda_ms(plain, iters=3), bound_ms=1e3 * max(b, o),
-                bound_by="bytes" if b >= o else "operations")
+                shape=shape, max_abs_err=err, ids_equal=ok,
+                ms=cuda_ms(kern, reps=5),
+                device_ms=kernel_device_ms(kern, kern_names),
+                plain_ms=cuda_ms(plain, iters=3),
+                library_ms=cuda_ms(lib, iters=3), **bound_of(*bounds()))
+            pk = lambda: scan(*args, **pkw)  # noqa: E731
+            res[kname]["paged_program"] = dict(
+                shape=shape, pred="tree", ms=cuda_ms(pk, reps=5),
+                device_ms=kernel_device_ms(pk, kern_names),
+                plain_ms=cuda_ms(lambda: plain_fn(*args, **pkw), iters=3),
+                library_ms=cuda_ms(lambda: lib((f_tree, pool_attrs)),
+                                   iters=3),
+                mask_bitwise=mask_same, **bound_of(*bounds(keep)))
             checks.append((kname, err, ok))
         finally:
             cache.unpin(frames)
@@ -1287,12 +1904,14 @@ def check_path_routes(res, ctx, pools):
         check(ok, f"{kname} disagrees with its plain version on this "
               f"slice's route")
     for kname in ("ivf_scan_topk", "sq_scan_topk"):
-        for route in ("prefilter", "paged"):
+        for route in ("prefilter", "paged", "paged_program"):
             e = res[kname].get(route)
             if e:
                 log(f"  time {kname} {route} [{e['shape']}]: kernel "
-                    f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
-                    f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+                    f"{e['ms']:.4f} ms, device {fmt_ms(e['device_ms'])}, "
+                    f"plain {e['plain_ms']:.4f} ms, library "
+                    f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} "
+                    f"ms ({e['bound_by']})")
     log(f"phase kernels (slice routes): {time.perf_counter() - t0:.1f} s")
 
 
@@ -1300,7 +1919,8 @@ def kernels_line(res, launches, by_path=None):
     kernels = []
     for kname, r in res.items():
         extra = {k: r[k] for k in ("device_ms", "exact", "prefilter",
-                                   "paged") if k in r}
+                                   "paged", "program", "paged_program")
+                 if k in r}
         if by_path is not None:
             extra["launches_by_path"] = {p: c[kname]
                                          for p, c in by_path.items()}
@@ -1313,10 +1933,41 @@ def kernels_line(res, launches, by_path=None):
     return kernels
 
 
+def batch_times(idx, q, reps=30):
+    """A Q=32 int8 ANN batch (k=100, n_probe=8) through executor.run on
+    the in-memory index: unfiltered, post-filter `attr0 == 3` on the
+    program route, and the same on the mask route, in turns `reps` times
+    each (host clock, after a synchronize), as quartiles."""
+    import torch
+    from repro_torch.core import executor
+    from repro_torch.core.hybrid import Pred
+    from repro_torch.core.query import Q
+    base = Q.knn(k=100, n_probe=8)
+    post = base.where(Pred(0, "==", 3)).postfilter()
+    specs = {"unfiltered": base, "program route": post,
+             "mask route": mask_route(post)}
+
+    def once(spec):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        executor.run(idx, q, spec)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    for spec in specs.values():
+        for _ in range(5):
+            once(spec)
+    times = {k: [] for k in specs}
+    for _ in range(reps):
+        for k, spec in specs.items():
+            times[k].append(once(spec))
+    for k, v in times.items():
+        log(f"  time batch Q={q.shape[0]} {k}: {fmt_q(quartiles(v))}")
+
+
 def kernels_only():
     """Phase 4 alone, on the main path's data and index configuration
     built in memory (no SQLite store): quick kernel times at the main
-    path's shapes, for any tree's src/ (--src)."""
+    path's shapes, for any tree's src/ (--src); then batch_times."""
     import numpy as np
     from repro_torch.core import ivf
     from repro_torch.core.types import IVFConfig
@@ -1333,6 +1984,7 @@ def kernels_only():
     log(f"phase index: {time.perf_counter() - t0:.1f} s  k={idx.k} "
         f"p_max={idx.p_max}")
     res = timed_kernels(idx, ds.Q)
+    batch_times(idx, ds.Q[:32])
     print(json.dumps({"kernels": kernels_line(
         res, {k: None for k in res})}), flush=True)
 
@@ -1352,7 +2004,8 @@ def run(args):
     log(f"phase main: {time.perf_counter() - t0:.1f} s")
     out["paged"], pools = paged_phase(ctx)
     ctx["eng2"].close()
-    out["paged_build"] = paged_build_phase(ctx)
+    out["paged_build"], pb = paged_build_phase(ctx)
+    out["rebuild"] = rebuild_phase(ctx, pb)
     eng, queries = ctx["eng"], ctx["queries"]
     t0 = time.perf_counter()
     profile_queries(eng, queries)
@@ -1366,8 +2019,11 @@ def run(args):
     shutil.rmtree(WORK, ignore_errors=True)
     by_path = {"main": out["launches"],
                "hybrid": out["hybrid"]["launches"],
+               "maintenance": out["maintenance"]["launches"],
                "paged": out["paged"]["launches"],
-               "paged_build": out["paged_build"]["launches"]}
+               "paged_build": out["paged_build"]["launches"],
+               "paged_rebuild": out["rebuild"]["paged"]["launches"],
+               "resident_rebuild": out["rebuild"]["resident"]["launches"]}
     kernels = kernels_line(res, out["launches"], by_path)
     log(json.dumps({"main": {k: v for k, v in out.items()
                              if k != "launches"}}))

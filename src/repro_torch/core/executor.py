@@ -5,10 +5,14 @@ plan through the frame pool.
 Plan model (paper Alg. 2 generalised):
     probe set         part_ids [n]  -- shared partition scan list
     selection mask    qsel [Q, n]   -- which query wants which partition
-    post-filter       keep [k, p_max] -- the compiled predicate's row mask
+    post-filter       the compiled predicate's program, evaluated by the
+                      scan kernels on each probed row's attrs (an opaque
+                      filter callable: its [k, p_max] keep mask instead)
     k                 top-k width
 Exact = probe everything; pre-filter = compact the qualifying rows into
-virtual partitions and scan those (§3.5, cost ~ the gather cap). On an
+virtual partitions and scan those (§3.5, cost ~ the gather cap); small
+batches on the "torch" backend gather each query's own probes
+(plan_ann_gather) instead of the shared union. On an
 int8 index an ann plan scans the code tier for k' = rerank_factor * k
 candidate rows (kernels/sq_scan.py) and reranks them exactly in float32;
 every other plan runs the float32 scan (kernels/ivf_scan.py). The delta
@@ -28,7 +32,10 @@ kernels, "torch" runs their plain versions on the CPU. A spec naming the
 other device's backend raises; nothing switches silently.
 
 Differences from the JAX package, each deliberate:
-  * the union plan is taken for every Q (no small-Q gather variant);
+  * an opaque filter callable, or a tree over the program's limits (no
+    `.program`), is evaluated into a keep mask over the whole index (the
+    frame pool, when paged) before the scan (JAX traces any callable into
+    its kernel);
   * the probe union is ordered by (votes descending, partition id
     ascending) -- the order lax.top_k gives -- so partitions are scanned,
     and score ties broken, in the same order as the reference;
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from . import quantize
 from .hybrid import compile_filter
 from .query import QuerySpec, ResultSet
 from .topk import dedup_by_id, mask_scores, merge_topk, topk_smallest
@@ -55,10 +63,18 @@ from .types import (INVALID_ID, MASKED_SCORE, IVFIndex, PagedIndex,
 AttrFilter = Callable[[torch.Tensor], torch.Tensor]
 
 
+def _own_backend(index) -> str:
+    return "cuda" if index.device.type == "cuda" else "torch"
+
+
+def _backend(index, spec: QuerySpec) -> str:
+    return spec.on_backend or _own_backend(index)
+
+
 def _check_backend(index: IVFIndex, requested: Optional[str]) -> None:
     """A spec's backend must be its index's: "cuda" on a CUDA index,
     "torch" on a CPU one (or None)."""
-    own = "cuda" if index.device.type == "cuda" else "torch"
+    own = _own_backend(index)
     if requested is not None and requested != own:
         raise ValueError(f"backend {requested!r} does not match the index "
                          f"on {index.device} (backend {own!r})")
@@ -119,8 +135,10 @@ class QueryPlan:
     qsel: Optional[torch.Tensor]          # [Q, n] bool (None: all queries)
     k: int = 10
     kind: str = "ann"                     # ann | exact | prefilter
+    #                                       | ann_gather
     attr_filter: Optional[AttrFilter] = None
     rows: Optional[torch.Tensor] = None   # [cap] int32 (prefilter only)
+    parts_pq: Optional[torch.Tensor] = None  # [Q, n] int32 (ann_gather)
 
 
 def plan_ann(index: IVFIndex, queries: torch.Tensor, k: int, n_probe: int,
@@ -135,6 +153,28 @@ def plan_ann(index: IVFIndex, queries: torch.Tensor, k: int, n_probe: int,
                                n_probe, u_max=u_max, qmask=qmask)
     return QueryPlan(queries=q, part_ids=upart, qsel=qsel, k=k, kind="ann",
                      attr_filter=attr_filter)
+
+
+# Largest (bucketed) query count routed to the per-query gather plan on
+# the "torch" backend (the reference's value): below it the gather's
+# direct [Q, n_probe] scan is cheaper than the union's vote and top-k
+# plumbing. The "cuda" backend keeps the union plan at every Q.
+SMALL_Q_GATHER_MAX = 8
+
+
+def plan_ann_gather(index: IVFIndex, queries: torch.Tensor, k: int,
+                    n_probe: int,
+                    attr_filter: Optional[AttrFilter] = None) -> QueryPlan:
+    """Small-Q ANN plan: each query's own n_probe nearest partitions, no
+    shared union. Execution gathers each query's [n_probe, p_max] block
+    and scores it directly; the candidate set is plan_ann's at equal
+    n_probe, so ids agree and scores agree within float32 summation
+    order."""
+    q = normalize_if_cosine(queries.to(torch.float32), index.config.metric)
+    parts = find_nearest_centroids(index, q, n_probe)       # [Q, n]
+    return QueryPlan(queries=q, part_ids=None, qsel=None, k=k,
+                     kind="ann_gather", attr_filter=attr_filter,
+                     parts_pq=parts.to(torch.int32))
 
 
 def plan_exact(index: IVFIndex, queries: torch.Tensor, k: int,
@@ -182,26 +222,44 @@ def plan_prefilter(index: IVFIndex, queries: torch.Tensor, k: int,
 # ---------------------------------------------------------------------------
 
 
+def scan_filter(attr_filter: Optional[AttrFilter], attrs):
+    """A post-filter as the scan kernels take it -> (keep, attrs, program):
+    a compiled predicate's program with the attribute tensor it reads in
+    the scan, or, for an opaque callable or a tree over the program's
+    limits (no `.program`), its keep mask over `attrs`. (None, None, None)
+    without a filter."""
+    if attr_filter is None:
+        return None, None, None
+    program = getattr(attr_filter, "program", None)
+    if program is not None:
+        return None, attrs, program
+    return attr_filter(attrs), None, None
+
+
 def fused_scan(queries, vectors, valid, ids, part_ids, k_out: int, *,
-               metric: str = "l2", qsel=None, keep=None):
+               metric: str = "l2", qsel=None, keep=None, attrs=None,
+               program=None):
     """Alg. 2 hot loop over the float32 tier: probed partitions, batched
-    distances, top-k, post-filter mask applied before selection. Returns
+    distances, top-k, the post-filter (a predicate program over `attrs`,
+    or a keep mask) applied in the scan before selection. Returns
     (scores [Q, k_out], ids [Q, k_out]) in the rank convention (l2 drops
     ||q||^2). qsel None scans every probe for every query."""
     return ops.scan_topk_mqo(queries, vectors, valid, ids, part_ids, qsel,
-                             k_out, metric=metric, keep=keep)
+                             k_out, metric=metric, keep=keep, attrs=attrs,
+                             program=program)
 
 
 def fused_sq_scan(queries, codes, qstats, valid, part_ids, k_out: int, *,
                   metric: str = "l2", qsel=None, keep=None, norms=None,
-                  ids=None):
+                  ids=None, attrs=None, program=None):
     """Candidate stage of the quantized two-stage search: the int8-domain
     scan over the code tier, emitting flat row ids (p * p_max + slot) for
     the resident rerank, or `ids` (a paged pool's asset ids) where given;
     scores are approximate."""
     return ops.sq_scan_topk(queries, codes, qstats.lo, qstats.scale, valid,
                             ids, part_ids, k_out, metric=metric, qsel=qsel,
-                            keep=keep, norms=norms)
+                            keep=keep, norms=norms, attrs=attrs,
+                            program=program)
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +381,12 @@ def execute_plan(index: IVFIndex, plan: QueryPlan,
         s, i = _merge_epilogue(index.delta, cfg.metric, q, s, i, plan.k,
                                k_scan, f)
         return SearchResult(ids=i, scores=s)
-    keep = f(index.attrs) if f is not None else None
+    if plan.kind == "ann_gather":
+        s, i, k_scan = _execute_gather(index, plan, quantized)
+        s, i = _merge_epilogue(index.delta, cfg.metric, q, s, i, plan.k,
+                               k_scan, f)
+        return SearchResult(ids=i, scores=s)
+    keep, attrs, prog = scan_filter(f, index.attrs)
     n = plan.part_ids.shape[0]
     if quantized and plan.kind == "ann":
         # two-stage: the int8 scan selects k' candidate rows, then the
@@ -333,17 +396,79 @@ def execute_plan(index: IVFIndex, plan: QueryPlan,
         _, cand_rows = fused_sq_scan(
             q, index.codes, index.qstats, index.valid, plan.part_ids,
             k_cand, metric=cfg.metric, qsel=plan.qsel, keep=keep,
-            norms=index.code_norms)
+            norms=index.code_norms, attrs=attrs, program=prog)
         k_scan = min(plan.k, k_cand)
         s, i = _rerank_float32(index, q, cand_rows, k_scan)
     else:
         k_scan = min(plan.k, n * p_max)
         s, i = fused_scan(q, index.vectors, index.valid, index.ids,
                           plan.part_ids, k_scan, metric=cfg.metric,
-                          qsel=plan.qsel, keep=keep)
+                          qsel=plan.qsel, keep=keep, attrs=attrs,
+                          program=prog)
     s, i = _merge_epilogue(index.delta, cfg.metric, q, s, i, plan.k, k_scan,
                            f)
     return SearchResult(ids=i, scores=s)
+
+
+def _execute_gather(index: IVFIndex, plan: QueryPlan, quantized: bool):
+    """The small-Q gather plan (plain PyTorch, the "torch" backend): each
+    query's [n_probe, p_max] probe block scored directly. An int8 index
+    keeps the two-stage contract: the int8-domain gathered scan (both
+    folded terms in one exact contraction) for k' candidate rows, then the
+    float32 rerank. -> (scores, ids, k_scan)."""
+    cfg = index.config
+    q = plan.queries
+    kp, p_max, d = index.vectors.shape
+    parts = plan.parts_pq.long()                           # [Q, n]
+    n_q, npb = parts.shape
+    pok = index.valid[parts]                               # [Q, n, p_max]
+    if plan.attr_filter is not None:
+        pok = pok & plan.attr_filter(index.attrs[parts])
+    pok = pok.reshape(n_q, npb * p_max)
+    if quantized:
+        k_cand = min(max(plan.k, plan.k * cfg.rerank_factor), npb * p_max)
+        q_i8, alpha, beta = quantize.fold_queries(index.qstats, q)
+        qt = q_i8.reshape(2, n_q, d)
+        at = alpha.reshape(2, n_q)
+        pc = index.codes[parts]                            # [Q, n, p_max, d]
+        if d <= 1024:   # integer products and sums below 2^24: exact
+            acc = torch.einsum("tqd,qnpd->tqnp", qt.to(torch.float32),
+                               pc.to(torch.float32))
+        else:
+            acc = torch.einsum("tqd,qnpd->tqnp", qt.to(torch.float64),
+                               pc.to(torch.float64)).to(torch.float32)
+        terms = at[:, :, None, None] * acc                 # [2, Q, n, p_max]
+        dots = terms[0] + terms[1] + beta[:, None, None]
+        if cfg.metric in ("ip", "cosine"):
+            scores = -dots
+        else:
+            v2 = index.code_norms[parts] if index.code_norms is not None \
+                else quantize.row_norms(index.qstats, pc)
+            scores = v2 - 2.0 * dots
+        scores = mask_scores(scores.reshape(n_q, npb * p_max), pok)
+        # flat row ids (partition * p_max + slot) feed the f32 rerank
+        rid = (parts.to(torch.int32)[:, :, None] * p_max
+               + torch.arange(p_max, dtype=torch.int32,
+                              device=q.device)[None, None, :])
+        cand_s, cand_rows = topk_smallest(
+            scores, rid.reshape(n_q, npb * p_max), k_cand)
+        cand_rows = torch.where(cand_s >= MASKED_SCORE,
+                                torch.full_like(cand_rows, INVALID_ID),
+                                cand_rows)
+        k_scan = min(plan.k, k_cand)
+        s, i = _rerank_float32(index, q, cand_rows, k_scan)
+        return s, i, k_scan
+    pv = index.vectors[parts]                              # [Q, n, p_max, d]
+    dots = torch.einsum("qd,qnpd->qnp", q, pv)
+    if cfg.metric in ("ip", "cosine"):
+        scores = -dots
+    else:
+        scores = torch.sum(pv * pv, dim=-1) - 2.0 * dots
+    scores = mask_scores(scores.reshape(n_q, npb * p_max), pok)
+    k_scan = min(plan.k, npb * p_max)
+    s, i = topk_smallest(scores, index.ids[parts].reshape(n_q, npb * p_max),
+                         k_scan)
+    return s, i, k_scan
 
 
 def _spec_filter(spec: QuerySpec) -> Optional[AttrFilter]:
@@ -372,6 +497,11 @@ def _run_spec(index: IVFIndex, queries: torch.Tensor,
                 "or let MicroNN.query size it from the selectivity "
                 "estimate")
         plan = plan_prefilter(index, queries, spec.k, f, spec.cap)
+    elif (queries.shape[0] <= SMALL_Q_GATHER_MAX and spec.u_max is None
+          and _backend(index, spec) == "torch"):
+        # small (bucketed) batches on the plain backend skip the shared
+        # union, as the reference does off the TPU kernel path
+        plan = plan_ann_gather(index, queries, spec.k, spec.n_probe, f)
     else:
         plan = plan_ann(index, queries, spec.k, spec.n_probe, f,
                         u_max=spec.u_max, qmask=qmask)
@@ -579,8 +709,8 @@ def paged_search(pindex: PagedIndex, queries, *, k: int, kind: str = "ann",
             try:
                 # read the pools after fault(): a resize rebinds them
                 fidx = to_device([frames], dev)[0]
-                keep = attr_filter(cache.attrs_pool) \
-                    if attr_filter is not None else None
+                keep, attrs, prog = scan_filter(attr_filter,
+                                                cache.attrs_pool)
                 cq = qsel[:, s:s + chunk]
                 k_chunk = min(k_run, len(cpids) * p_max)
                 if use_sq:
@@ -588,12 +718,12 @@ def paged_search(pindex: PagedIndex, queries, *, k: int, kind: str = "ann",
                         q, cache.payload_pool, pindex.qstats,
                         cache.valid_pool, fidx, k_chunk, metric=cfg.metric,
                         qsel=cq, keep=keep, norms=cache.norms_pool,
-                        ids=cache.ids_pool)
+                        ids=cache.ids_pool, attrs=attrs, program=prog)
                 else:
                     cs, ci = fused_scan(
                         q, cache.payload_pool, cache.valid_pool,
                         cache.ids_pool, fidx, k_chunk, metric=cfg.metric,
-                        qsel=cq, keep=keep)
+                        qsel=cq, keep=keep, attrs=attrs, program=prog)
             finally:
                 # the scan is enqueued on the stream every later fault
                 # write into these frames uses, so unpinning here is safe

@@ -5,8 +5,10 @@ Attributes are float32 columns aligned to the vector layout. Predicates
 support the paper's operators (>, <, >=, <=, =, !=) plus MATCH (a token
 bitset test, the FTS5 stand-in) and arbitrary AND/OR trees.
 `compile_filter` turns a tree into a callable that maps attrs
-[..., n_attr] to a keep mask [...]: the post-filter mask the scan kernels
-read beside `valid`, and the pre-filter plan's row test.
+[..., n_attr] to a keep mask [...] (the pre-filter plan's row test) and
+that carries the tree's `compile_program`: a small postfix program the
+scan kernels evaluate on each probed row's attributes inside the scan
+(kernels/csrc/pred_program.cuh), so a filtered query builds no mask.
 
 Selectivity estimation (paper §3.5.1, `AttributeStats`): per-column
 equi-width histograms and distinct counts, min over AND and the clamped
@@ -112,10 +114,128 @@ def compile_filter(node: Node):
         return eval_predicate(node, attrs)
     fn.__name__ = f"filter_{hash(key) & 0xFFFFFFFF:x}"
     # the source tree rides along so a QuerySpec built from a compiled
-    # filter recovers the structurally-hashable predicate
+    # filter recovers the structurally-hashable predicate; its program is
+    # what the scan kernels evaluate
     fn.predicate = node
+    # a tree over the device evaluator's limits carries no program: the
+    # scans then take its keep mask, as for an opaque callable
+    try:
+        fn.program = compile_program(node)
+    except ValueError:
+        fn.program = None
     _FILTER_CACHE[key] = fn
     return fn
+
+
+# ---------------------------------------------------------------------------
+# The predicate program: what the scan kernels evaluate per row
+# ---------------------------------------------------------------------------
+
+# Instruction opcodes (kernels/csrc/pred_program.cuh has the same table):
+# leaves compare attrs[col] with a float32 value (match tests uint32 tag
+# bits); AND / OR pop `arg` results and push one.
+PROGRAM_OPS = {"lt": 0, "le": 1, "gt": 2, "ge": 3, "eq": 4, "ne": 5,
+               "match": 6, "and": 7, "or": 8}
+# Limits of the device evaluator: the program rides in the launch
+# arguments, and its stack of results is one 32-bit register per lane.
+MAX_PROGRAM = 64
+MAX_DEPTH = 32
+# An AND / OR folds its results so far into one whenever this many are on
+# the stack, so the depth follows the tree's nesting, not its fan-out (a
+# long IN-list, Or of `eq` leaves, stays shallow).
+FOLD_EVERY = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class Program:
+    """A predicate tree in postfix form. Instruction i is `code[i]` =
+    opcode | arg << 8 (arg: the column of a leaf, the operand count of an
+    AND / OR) and `word[i]`, the float32 bits of a comparison's value or a
+    match's uint32 tag bits. `packed` is the launch argument the kernels
+    take: int32 count, then the codes, then the words, MAX_PROGRAM each."""
+
+    code: Tuple[int, ...]
+    word: Tuple[int, ...]
+    depth: int
+
+    def __len__(self) -> int:
+        return len(self.code)
+
+    @property
+    def max_col(self) -> int:
+        cols = [c >> 8 for c in self.code
+                if c & 0xFF < PROGRAM_OPS["and"]]
+        return max(cols) if cols else -1
+
+    @property
+    def packed(self) -> np.ndarray:
+        out = self.__dict__.get("_packed")
+        if out is None:
+            out = np.zeros((1 + 2 * MAX_PROGRAM,), np.uint32)
+            out[0] = len(self.code)
+            out[1:1 + len(self.code)] = self.code
+            out[1 + MAX_PROGRAM:1 + MAX_PROGRAM + len(self.word)] = self.word
+            object.__setattr__(self, "_packed", out)
+        return out
+
+
+_PROGRAM_CACHE: Dict[tuple, Program] = {}
+
+
+def compile_program(node: Node) -> Program:
+    """Predicate tree -> postfix Program (memoised on the frozen tree).
+    Comparisons take the value rounded to float32 once, match the low 32
+    bits of int(value), as eval_predicate does. Raises ValueError for a
+    tree of more than MAX_PROGRAM instructions or a stack deeper than
+    MAX_DEPTH (compile_filter then gives the tree no program)."""
+    key = _freeze(node)
+    prog = _PROGRAM_CACHE.get(key)
+    if prog is not None:
+        return prog
+    code, word = [], []
+    depth = 0
+
+    def emit(n: Node, base: int):
+        # base: results already on the stack below this subtree
+        nonlocal depth
+        if isinstance(n, Pred):
+            if not 0 <= int(n.col) < 1 << 24:
+                raise ValueError(f"predicate column {n.col} out of range")
+            code.append(PROGRAM_OPS[n.op] | int(n.col) << 8)
+            if n.op == "match":
+                word.append(int(n.value) & 0xFFFFFFFF)
+            else:
+                word.append(int(np.float32(n.value).view(np.uint32)))
+            depth = max(depth, base + 1)
+            return
+        kids = tuple(n.children)
+        if not kids:
+            raise ValueError("an And / Or node needs at least one child")
+        op = PROGRAM_OPS["and" if isinstance(n, And) else "or"]
+        held = 0                # this node's results on the stack
+        for c in kids:
+            if held == FOLD_EVERY:
+                code.append(op | held << 8)
+                word.append(0)
+                held = 1
+            emit(c, base + held)
+            held += 1
+        code.append(op | held << 8)
+        word.append(0)
+
+    emit(node, 0)
+    if len(code) > MAX_PROGRAM:
+        raise ValueError(f"predicate compiles to {len(code)} instructions; "
+                         f"the scan kernels take at most MAX_PROGRAM = "
+                         f"{MAX_PROGRAM}")
+    if depth > MAX_DEPTH:
+        raise ValueError(f"predicate needs a stack of {depth}; the scan "
+                         f"kernels take at most MAX_DEPTH = {MAX_DEPTH}")
+    prog = Program(code=tuple(code), word=tuple(word), depth=depth)
+    if len(_PROGRAM_CACHE) >= _FILTER_CACHE_MAX:
+        _PROGRAM_CACHE.pop(next(iter(_PROGRAM_CACHE)))
+    _PROGRAM_CACHE[key] = prog
+    return prog
 
 
 def _freeze(node: Node):

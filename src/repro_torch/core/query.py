@@ -123,7 +123,7 @@ class QuerySpec:
         return dataclasses.replace(self, hybrid="pre", cap=cap)
 
     def postfilter(self) -> "QuerySpec":
-        """Run the predicate as a post-filter mask read by the scan."""
+        """Run the predicate as a post-filter, evaluated in the scan."""
         return dataclasses.replace(self, hybrid="post")
 
     def quantized(self, flag: Optional[bool] = True) -> "QuerySpec":

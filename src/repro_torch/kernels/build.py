@@ -34,9 +34,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # are c_void_p (a bare int would be cut to 32 bits), every size c_int.
 SIGNATURES = {
     "ivf_scan": ("ivf_scan_launch",
-                 [_P] * 7 + [_I] * 8 + [_P] * 8),
+                 [_P] * 9 + [_I] * 9 + [_P] * 8),
     "sq_scan": ("sq_scan_launch",
-                [_P] * 12 + [_I] * 7 + [_P] * 7),
+                [_P] * 14 + [_I] * 8 + [_P] * 7),
     "kmeans_assign": ("kmeans_assign_launch",
                       [_P] * 3 + [_I] * 5 + [_P] * 6),
 }
@@ -58,7 +58,10 @@ def nvcc_path() -> str:
 
 
 def _sources(name: str) -> List[Path]:
-    return [CSRC / f"{name}.cu", CSRC / "topk_common.cuh"]
+    """The kernel's source and every header it may include (the library
+    name hashes them all)."""
+    return [CSRC / f"{name}.cu", CSRC / "topk_common.cuh",
+            CSRC / "pred_program.cuh"]
 
 
 def lib_path(name: str) -> Path:

@@ -35,6 +35,23 @@ def as_dtype(t: Optional[torch.Tensor], dtype: torch.dtype
     return t.to(dtype).contiguous()
 
 
+def program_args(name: str, kp: int, p_max: int, attrs, program):
+    """(attrs as contiguous float32 or None, host pointer of the packed
+    program or None, n_attr) for a scan's launch. A program needs the
+    attribute tensor [kp, p_max, n_attr] holding every column it reads."""
+    if program is None:
+        return None, None, 0
+    if attrs is None or attrs.dim() != 3 or \
+            tuple(attrs.shape[:2]) != (kp, p_max):
+        raise ValueError(f"{name}: a predicate program needs attrs "
+                         f"[{kp}, {p_max}, n_attr]")
+    if program.max_col >= attrs.shape[2]:
+        raise ValueError(f"{name}: the predicate reads column "
+                         f"{program.max_col} of {attrs.shape[2]}")
+    return (as_dtype(attrs, torch.float32), program.packed.ctypes.data,
+            attrs.shape[2])
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 

@@ -6,7 +6,10 @@
 // What it computes: for each query q and each probed partition part_ids[j]
 // that q selects (qsel[q, j] != 0; every j without qsel), the scores
 // ||v||^2 - 2 q.v (l2) or -q.v (ip / cosine) of the partition's p_max rows,
-// masked by `valid` and the optional post-filter `keep` mask, and the
+// masked by `valid` and by the post-filter -- the attribute predicate
+// program evaluated on the row's `attrs` inside the scan
+// (pred_program.cuh; the Pallas kernel's fused attr_filter), or a
+// precomputed `keep` mask for an opaque filter callable -- and the
 // ascending top-k_out over the flattened [n * p_max] list, ties broken by
 // position j * p_max + slot (the order lax.top_k gives). Fewer qualifying
 // rows than k_out leaves (MASKED, -1) in the tail -- never a repeated id.
@@ -31,8 +34,10 @@
 //   copy.
 // - Keeping every warp busy: a block lists the rows of 128 (pair, 32-slot
 //   group) items at a time -- each warp ballots the valid (and keep) bytes
-//   of 16 items, all loads in flight, and appends the set slots, holes or
-//   not -- and then deals the listed rows out in batches of 4 R, so every
+//   of 16 items, all loads in flight, then evaluates the predicate program
+//   on the valid rows' attributes (8 B a row at n_attr = 2; the 16 rows in
+//   lockstep, their loads in flight together), and appends the set slots,
+//   holes or not -- and then deals the listed rows out in batches of 4 R, so every
 //   warp has the same share and most of a partition's empty groups cost
 //   one ballot. Barriers fall only between lists and sub-rounds.
 // - Reading rows: four teams of 8 lanes take R rows each per batch; a lane
@@ -65,6 +70,7 @@
 // queries, so an MMA tile would be mostly padding; on the exact route the
 // bytes set the bound; and TF32 would move scores (and ids) by ~1e-3.
 
+#include "pred_program.cuh"
 #include "topk_common.cuh"
 
 namespace {
@@ -121,7 +127,7 @@ struct ScanArgs {
   const float* queries;
   const float* vectors;
   const int8_t* valid;
-  const int8_t* keep;          // null: no post-filter
+  const int8_t* keep;          // null: no precomputed post-filter mask
   const int32_t* part_ids;
   const int32_t* pairs;        // null: every probe position is a pair
   const int32_t* pair_cnt;
@@ -139,8 +145,9 @@ size_t pass1_smem(int g, int k_out, int d) {
          (size_t)(LIST_CAP + 2 * g + 3 + 2 * PAIR_BATCH) * sizeof(int);
 }
 
-template <int G>
-__global__ void __launch_bounds__(THREADS, 2) ivf_scan_pass1(ScanArgs a) {
+template <int G, bool HAS_PROG>
+__global__ void __launch_bounds__(THREADS, 2)
+ivf_scan_pass1(ScanArgs a, PredArg<HAS_PROG> pred) {
   constexpr int CAP = cap_of(G);
   constexpr int SUB = sub_of(G);
   constexpr int R = rows_of(G);
@@ -239,6 +246,18 @@ __global__ void __launch_bounds__(THREADS, 2) ivf_scan_pass1(ScanArgs a) {
           const size_t at = (size_t)pp[item / groups] * p_max + slot;
           ok[u] = a.valid[at] != 0 && (a.keep == nullptr || a.keep[at] != 0);
         }
+      }
+      if constexpr (HAS_PROG) {
+        size_t row[WARP_ITEMS];
+#pragma unroll
+        for (int u = 0; u < WARP_ITEMS; ++u) {
+          const int item = i0 + w * WARP_ITEMS + u;
+          const int slot = (item % groups) * GROUP + lane;
+          row[u] = ok[u] ? ((size_t)pp[item / groups] * p_max + slot) *
+                               pred.n_attr
+                         : 0;
+        }
+        eval_program_rows<WARP_ITEMS>(pred.prog, pred.attrs, row, ok);
       }
 #pragma unroll
       for (int u = 0; u < WARP_ITEMS; ++u) {
@@ -413,13 +432,26 @@ __global__ void __launch_bounds__(THREADS, 2) ivf_scan_pass1(ScanArgs a) {
   }
 }
 
-template <int G>
-cudaError_t run_pass1(const ScanArgs& a, size_t smem, cudaStream_t st) {
-  cudaError_t err = allow_smem(ivf_scan_pass1<G>, smem);
+template <int G, bool HAS_PROG>
+cudaError_t run_pass1(const ScanArgs& a, const PredArg<HAS_PROG>& pred,
+                      size_t smem, cudaStream_t st) {
+  cudaError_t err = allow_smem(ivf_scan_pass1<G, HAS_PROG>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.n_chunks, (a.n_q + G - 1) / G);
-  ivf_scan_pass1<G><<<grid, THREADS, smem, st>>>(a);
+  ivf_scan_pass1<G, HAS_PROG><<<grid, THREADS, smem, st>>>(a, pred);
   return cudaGetLastError();
+}
+
+template <bool HAS_PROG>
+cudaError_t launch_pass1(const ScanArgs& a, const PredArg<HAS_PROG>& pred,
+                         int group, size_t smem, cudaStream_t st) {
+  switch (group) {
+    case 8: return run_pass1<8>(a, pred, smem, st);
+    case 4: return run_pass1<4>(a, pred, smem, st);
+    case 2: return run_pass1<2>(a, pred, smem, st);
+    case 1: return run_pass1<1>(a, pred, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -428,15 +460,19 @@ cudaError_t run_pass1(const ScanArgs& a, size_t smem, cudaStream_t st) {
 // caller allocates scratch and outputs: pairs [n_q * (n + 1)] i32 with qsel
 // (lists, then counts), limits [n_q] u64 with more than one chunk,
 // part_keys [n_q, n_chunks, k_out] u64, part_cnt [n_q, n_chunks] i32.
+// `program` is a host PredProgram (null: none), copied into the launch
+// arguments; with one, `attrs` [F, p_max, n_attr] is read on the device.
 // `group` is the most queries a block shares rows across (1 with qsel);
 // it is halved until a block's shared memory lets two blocks share an SM.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int ivf_scan_launch(const void* queries, const void* vectors,
                                const void* valid, const void* keep,
+                               const void* attrs, const void* program,
                                const void* ids, const void* part_ids,
                                const void* qsel, int n_q, int d, int p_max,
                                int n, int n_chunks, int k_out, int metric_l2,
-                               int group, void* pairs, void* pair_cnt,
+                               int group, int n_attr, void* pairs,
+                               void* pair_cnt,
                                void* limits, void* part_keys, void* part_cnt,
                                void* out_s, void* out_i, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -470,12 +506,12 @@ extern "C" int ivf_scan_launch(const void* queries, const void* vectors,
   while (group > 1 && pass1_smem(group, k_out, d) > SMEM_TWO_PER_SM)
     group >>= 1;
   const size_t smem1 = pass1_smem(group, k_out, d);
-  switch (group) {
-    case 8: err = run_pass1<8>(a, smem1, st); break;
-    case 4: err = run_pass1<4>(a, smem1, st); break;
-    case 2: err = run_pass1<2>(a, smem1, st); break;
-    case 1: err = run_pass1<1>(a, smem1, st); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (program != nullptr) {
+    const PredArg<true> pred{static_cast<const float*>(attrs), n_attr,
+                             *static_cast<const PredProgram*>(program)};
+    err = launch_pass1(a, pred, group, smem1, st);
+  } else {
+    err = launch_pass1(a, PredArg<false>{}, group, smem1, st);
   }
   if (err != cudaSuccess) return (int)err;
   const size_t smem2 = pass2_smem_bytes(k_out, n_chunks);

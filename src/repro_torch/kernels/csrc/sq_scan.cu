@@ -13,7 +13,10 @@
 //   score = v2 - 2 * dots (l2)  |  -dots (ip / cosine)
 // with v2 from the precomputed code norms or, without them, from the
 // decode-and-reduce sum of ((c + 128) * scale + lo)^2. Rows are masked by
-// `valid` and the optional post-filter `keep` mask; the output is the
+// `valid` and by the post-filter: the attribute predicate program
+// evaluated on the row's `attrs` inside the scan (pred_program.cuh; the
+// Pallas kernel's fused attr_filter), or a precomputed `keep` mask for an
+// opaque filter callable; the output is the
 // ascending top-k_out by (score, position), carrying flat row ids
 // p * p_max + slot (or `ids` when given), with (MASKED, -1) in the tail.
 //
@@ -38,7 +41,9 @@
 //   Without `qsel` (exact search) every position is a pair.
 // - Reading rows: a block walks its pairs' 32-slot groups, eight groups
 //   per warp per round. The warp ballots the valid (and keep) bytes of
-//   all eight, loaded one round ahead, and skips a group with none. In a
+//   all eight, loaded one round ahead (with a predicate program, each
+//   lane then evaluates it on its eight valid rows' attributes in
+//   lockstep), and skips a group with none. In a
 //   group, four teams of 8 lanes take 8 slots each; a lane issues the
 //   16-byte loads of all its team's valid rows at once (coalesced
 //   128-byte rows at d = 128), then __dp4a into exact int32
@@ -56,6 +61,9 @@
 // - Pass 2 (topk_merge_pass2) merges each query's per-chunk lists.
 // No 32-row Q padding: the TPU's int8 tile minimum does not exist here.
 
+#include <type_traits>
+
+#include "pred_program.cuh"
 #include "topk_common.cuh"
 
 namespace {
@@ -96,6 +104,7 @@ __device__ __forceinline__ void dot_word(int cw, int xw, int yw, int e,
   }
 }
 
+template <bool HAS_PROG>
 __global__ void __launch_bounds__(THREADS, 2)
 sq_scan_pass1(const int8_t* __restrict__ q_i8,
               const float* __restrict__ alpha,
@@ -106,6 +115,7 @@ sq_scan_pass1(const int8_t* __restrict__ q_i8,
               const float* __restrict__ norms,
               const int8_t* __restrict__ valid,
               const int8_t* __restrict__ keep,
+              const PredArg<HAS_PROG> pred,
               const int32_t* __restrict__ part_ids,
               const int32_t* __restrict__ pairs,     // null: all positions
               const int32_t* __restrict__ pair_cnt,
@@ -164,17 +174,31 @@ sq_scan_pass1(const int8_t* __restrict__ q_i8,
     // their latency hides behind the scan.
     int8_t vb[ITEMS_PER_WARP], kb[ITEMS_PER_WARP];
     auto fetch = [&](int it0) {
+      size_t at[ITEMS_PER_WARP];
 #pragma unroll
       for (int u = 0; u < ITEMS_PER_WARP; ++u) {
         const int item = it0 + u * NWARPS + w;
         const int my = (item % groups) * GROUP + lane;
         vb[u] = 0;
         kb[u] = 1;
+        at[u] = 0;
         if (item < items && my < p_max) {
-          const size_t at = (size_t)pp[item / groups] * p_max + my;
-          vb[u] = valid[at];
-          if (keep != nullptr) kb[u] = keep[at];
+          at[u] = (size_t)pp[item / groups] * p_max + my;
+          vb[u] = valid[at[u]];
+          if (keep != nullptr) kb[u] = keep[at[u]];
         }
+      }
+      if constexpr (HAS_PROG) {
+        size_t row[ITEMS_PER_WARP];
+        bool ok[ITEMS_PER_WARP];
+#pragma unroll
+        for (int u = 0; u < ITEMS_PER_WARP; ++u) {
+          ok[u] = vb[u] != 0 && kb[u] != 0;
+          row[u] = at[u] * pred.n_attr;
+        }
+        eval_program_rows<ITEMS_PER_WARP>(pred.prog, pred.attrs, row, ok);
+#pragma unroll
+        for (int u = 0; u < ITEMS_PER_WARP; ++u) kb[u] = ok[u];
       }
     };
     fetch(0);
@@ -307,17 +331,21 @@ size_t pass1_smem(int k_out, int d) {
 }  // namespace
 
 // Launches the pair list (when qsel is given) and both passes on `stream`;
-// the caller allocates scratch and outputs. `norms`, `ids` and `qsel` may
-// be null; `pairs` [n_q, n] and `pair_cnt` [n_q] are needed with qsel.
+// the caller allocates scratch and outputs. `norms`, `keep`, `ids` and
+// `qsel` may be null; `pairs` [n_q, n] and `pair_cnt` [n_q] are needed
+// with qsel. `program` is a host PredProgram (null: none), copied into the
+// launch arguments; with one, `attrs` [F, p_max, n_attr] is read.
 // Returns cudaGetLastError().
 extern "C" int sq_scan_launch(const void* q_i8, const void* alpha,
                               const void* beta, const void* lo,
                               const void* scale, const void* codes,
                               const void* norms, const void* valid,
-                              const void* keep, const void* ids,
+                              const void* keep, const void* attrs,
+                              const void* program, const void* ids,
                               const void* part_ids, const void* qsel,
                               int n_q, int d, int p_max, int n, int n_chunks,
-                              int k_out, int metric_l2, void* pairs,
+                              int k_out, int metric_l2, int n_attr,
+                              void* pairs,
                               void* pair_cnt, void* part_keys,
                               void* part_cnt, void* out_s, void* out_i,
                               void* stream) {
@@ -333,20 +361,28 @@ extern "C" int sq_scan_launch(const void* q_i8, const void* alpha,
   const uintptr_t cp = reinterpret_cast<uintptr_t>(codes);
   const int vec16 = d % 16 == 0 && cp % 16 == 0;
   const size_t smem1 = pass1_smem(k_out, d);
-  err = allow_smem(sq_scan_pass1, smem1);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid1(n_chunks, n_q);
-  sq_scan_pass1<<<grid1, THREADS, smem1, st>>>(
-      static_cast<const int8_t*>(q_i8), static_cast<const float*>(alpha),
-      static_cast<const float*>(beta), static_cast<const float*>(lo),
-      static_cast<const float*>(scale), static_cast<const int8_t*>(codes),
-      static_cast<const float*>(norms), static_cast<const int8_t*>(valid),
-      static_cast<const int8_t*>(keep), static_cast<const int32_t*>(part_ids),
-      qsel ? static_cast<const int32_t*>(pairs) : nullptr,
-      static_cast<const int32_t*>(pair_cnt), n_q, d, p_max, n, n_chunks,
-      k_out, metric_l2, vec16, static_cast<uint64_t*>(part_keys),
-      static_cast<int32_t*>(part_cnt));
-  err = cudaGetLastError();
+  auto pass1 = [&](auto pred) {
+    constexpr bool P = std::is_same_v<decltype(pred), PredArg<true>>;
+    cudaError_t e = allow_smem(sq_scan_pass1<P>, smem1);
+    if (e != cudaSuccess) return e;
+    sq_scan_pass1<P><<<grid1, THREADS, smem1, st>>>(
+        static_cast<const int8_t*>(q_i8), static_cast<const float*>(alpha),
+        static_cast<const float*>(beta), static_cast<const float*>(lo),
+        static_cast<const float*>(scale), static_cast<const int8_t*>(codes),
+        static_cast<const float*>(norms), static_cast<const int8_t*>(valid),
+        static_cast<const int8_t*>(keep), pred,
+        static_cast<const int32_t*>(part_ids),
+        qsel ? static_cast<const int32_t*>(pairs) : nullptr,
+        static_cast<const int32_t*>(pair_cnt), n_q, d, p_max, n, n_chunks,
+        k_out, metric_l2, vec16, static_cast<uint64_t*>(part_keys),
+        static_cast<int32_t*>(part_cnt));
+    return cudaGetLastError();
+  };
+  err = program != nullptr
+            ? pass1(PredArg<true>{static_cast<const float*>(attrs), n_attr,
+                                  *static_cast<const PredProgram*>(program)})
+            : pass1(PredArg<false>{});
   if (err != cudaSuccess) return (int)err;
   const size_t smem2 = pass2_smem_bytes(k_out, n_chunks);
   err = allow_smem(topk_merge_pass2, smem2);

@@ -33,16 +33,21 @@ def ivf_scan_topk(
     metric: str = "l2",
     qsel: Optional[torch.Tensor] = None,  # [Q, n] bool (per-query probes)
     keep: Optional[torch.Tensor] = None,  # [k, p_max] bool post-filter
+    attrs: Optional[torch.Tensor] = None,  # [k, p_max, n_attr] f32
+    program=None,                   # core/hybrid.Program over attrs
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (scores [Q, k_out] f32, ids [Q, k_out] int32), ascending by
     (score, probe position * p_max + slot); (MASKED, -1) where fewer rows
-    qualify. `part_ids` must lie in [0, k): shapes are checked, values are
-    not (that would cost a host sync per scan)."""
+    qualify. A row qualifies when valid, kept by `keep` (the mask of an
+    opaque filter callable) and by `program`, the predicate evaluated on
+    its attrs inside the scan. `part_ids` must lie in [0, k): shapes are
+    checked, values are not (that would cost a host sync per scan)."""
     if queries.device.type == "cpu":
         return ivf_scan_plain(queries, vectors, valid, ids, part_ids, k_out,
-                              metric=metric, qsel=qsel, keep=keep)
+                              metric=metric, qsel=qsel, keep=keep,
+                              attrs=attrs, program=program)
     return _launch(queries, vectors, valid, ids, part_ids, k_out, metric,
-                   qsel, keep)
+                   qsel, keep, attrs, program)
 
 
 def query_group(n_q: int, qsel) -> int:
@@ -57,11 +62,11 @@ def query_group(n_q: int, qsel) -> int:
 
 
 def _launch(queries, vectors, valid, ids, part_ids, k_out, metric, qsel,
-            keep):
+            keep, attrs, program):
     global LAUNCHES
     dev = queries.device
     common.require_cuda("ivf_scan", dev, vectors, valid, ids, part_ids,
-                        qsel, keep)
+                        qsel, keep, attrs)
     n_q, d = queries.shape
     kp, p_max, dv = vectors.shape
     if dv != d:
@@ -70,6 +75,8 @@ def _launch(queries, vectors, valid, ids, part_ids, k_out, metric, qsel,
     common.require_shape("ivf_scan", (kp, p_max), valid=valid, ids=ids,
                          keep=keep)
     common.require_shape("ivf_scan", (n_q, n), qsel=qsel)
+    attrs, prog, n_attr = common.program_args("ivf_scan", kp, p_max, attrs,
+                                              program)
     if n_q == 0 or n == 0 or k_out == 0:
         return (torch.full((n_q, k_out), MASKED_SCORE, dtype=torch.float32,
                            device=dev),
@@ -83,9 +90,10 @@ def _launch(queries, vectors, valid, ids, part_ids, k_out, metric, qsel,
            common.as_dtype(vectors, torch.float32),
            common.as_dtype(valid, torch.int8),
            common.as_dtype(keep, torch.int8),
-           common.as_dtype(ids, torch.int32),
-           common.as_dtype(part_ids, torch.int32),
-           common.as_dtype(qsel, torch.int8)]
+           attrs]
+    ins2 = [common.as_dtype(ids, torch.int32),
+            common.as_dtype(part_ids, torch.int32),
+            common.as_dtype(qsel, torch.int8)]
     # scratch in two allocations (host work per call is what small batches
     # feel): int32 part_cnt [n_q, n_chunks], then with qsel the pair lists
     # [n_q, n] and their counts [n_q]; int64 part_keys [n_q, n_chunks,
@@ -102,10 +110,10 @@ def _launch(queries, vectors, valid, ids, part_ids, k_out, metric, qsel,
     part_keys = i64.data_ptr()
     limits = part_keys + 8 * n_q * n_chunks * k_out
     rc = build.load("ivf_scan").ivf_scan_launch(
-        *[common.ptr(t) for t in ins], n_q, d, p_max, n, n_chunks, k_out,
-        int(metric == "l2"), group, pairs, pair_cnt, limits, part_keys,
-        part_cnt, common.ptr(out_s), common.ptr(out_i),
-        common.stream_ptr(dev))
+        *[common.ptr(t) for t in ins], prog, *[common.ptr(t) for t in ins2],
+        n_q, d, p_max, n, n_chunks, k_out, int(metric == "l2"), group,
+        n_attr, pairs, pair_cnt, limits, part_keys, part_cnt,
+        common.ptr(out_s), common.ptr(out_i), common.stream_ptr(dev))
     build.check_launch("ivf_scan", rc)
     LAUNCHES += 1
     return out_s, out_i

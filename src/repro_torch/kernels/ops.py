@@ -19,25 +19,28 @@ _MODULES = {"ivf_scan_topk": _ivf, "sq_scan_topk": _sq,
 
 
 def scan_topk(queries, vectors, valid, ids, part_ids, k_out: int,
-              metric: str = "l2", keep=None):
+              metric: str = "l2", keep=None, attrs=None, program=None):
     """Fused partition-scan + top-k over a shared probe list."""
     return _ivf.ivf_scan_topk(queries, vectors, valid, ids, part_ids, k_out,
-                              metric=metric, keep=keep)
+                              metric=metric, keep=keep, attrs=attrs,
+                              program=program)
 
 
 def scan_topk_mqo(queries, vectors, valid, ids, part_ids, qsel, k_out: int,
-                  metric: str = "l2", keep=None):
+                  metric: str = "l2", keep=None, attrs=None, program=None):
     """MQO variant: qsel [Q, n] masks which query wants which partition."""
     return _ivf.ivf_scan_topk(queries, vectors, valid, ids, part_ids, k_out,
-                              metric=metric, qsel=qsel, keep=keep)
+                              metric=metric, qsel=qsel, keep=keep,
+                              attrs=attrs, program=program)
 
 
 def sq_scan_topk(queries, codes, lo, scale, valid, ids, part_ids, k_out: int,
-                 metric: str = "l2", qsel=None, keep=None, norms=None):
+                 metric: str = "l2", qsel=None, keep=None, norms=None,
+                 attrs=None, program=None):
     """Fused int8-domain scan + top-k over the code tier."""
     return _sq.sq_scan_topk(queries, codes, lo, scale, valid, ids, part_ids,
                             k_out, metric=metric, qsel=qsel, keep=keep,
-                            norms=norms)
+                            norms=norms, attrs=attrs, program=program)
 
 
 def assign_nearest(batch, centroids, counts, *, balance_weight: float = 0.0,

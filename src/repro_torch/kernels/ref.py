@@ -10,8 +10,10 @@ Selections keep lax.top_k's tie order (ascending score, then position).
 """
 from __future__ import annotations
 
+import operator
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core.topk import mask_scores, topk_smallest
@@ -33,6 +35,46 @@ def flat_row_ids(part_ids: torch.Tensor, p_max: int) -> torch.Tensor:
     return part_ids.to(torch.int32)[:, None] * p_max + slots[None, :]
 
 
+# opcodes 0-5 of core/hybrid.PROGRAM_OPS
+_COMPARE = (operator.lt, operator.le, operator.gt, operator.ge, operator.eq,
+            operator.ne)
+
+
+def eval_program(program, attrs: torch.Tensor) -> torch.Tensor:
+    """Plain version of the in-scan predicate evaluator
+    (csrc/pred_program.cuh): a core/hybrid.Program over attrs
+    [..., n_attr] -> keep [...], walked as the device walks it."""
+    stack = []
+    for c, w in zip(program.code, program.word):
+        op, arg = c & 0xFF, c >> 8
+        if op >= 7:                          # AND / OR over `arg` results
+            top = stack[-arg:]
+            del stack[-arg:]
+            out = top[0]
+            for m in top[1:]:
+                out = (out & m) if op == 7 else (out | m)
+            stack.append(out)
+            continue
+        col = attrs[..., arg]
+        if op == 6:                          # match: all tag bits present
+            stack.append((col.to(torch.int64) & w) == w)
+            continue
+        v = float(np.uint32(w).view(np.float32))   # exactly the float32
+        stack.append(_COMPARE[op](col, v))
+    return stack[-1]
+
+
+def _row_mask(valid, part_ids, keep, attrs, program):
+    """[n, p_max] rows a scan may return: valid, and kept by the mask or
+    by the predicate program over the probed rows' attributes."""
+    pok = valid[part_ids].to(torch.bool)
+    if keep is not None:
+        pok = pok & keep[part_ids].to(torch.bool)
+    if program is not None:
+        pok = pok & eval_program(program, attrs[part_ids])
+    return pok
+
+
 def _select(s, pok, pid, qsel, k_out: int):
     """Mask by the row mask [n, p_max] and the per-query selection
     [Q, n], then the ascending top-k_out over the flattened list."""
@@ -45,19 +87,19 @@ def _select(s, pok, pid, qsel, k_out: int):
 
 
 def ivf_scan_ref(queries, vectors, valid, ids, part_ids, k_out: int,
-                 metric: str = "l2", qsel=None, keep=None):
+                 metric: str = "l2", qsel=None, keep=None, attrs=None,
+                 program=None):
     """Plain version of the fused partition scan + top-k kernel.
 
     queries [Q, d]; vectors [k, p_max, d]; valid [k, p_max] bool;
     ids [k, p_max] int32 (None: flat row ids); part_ids [n] int32;
-    qsel [Q, n] bool or None; keep [k, p_max] bool post-filter or None.
+    qsel [Q, n] bool or None; keep [k, p_max] bool post-filter or None;
+    attrs [k, p_max, n_attr] with a predicate `program` or None.
     -> (scores [Q, k_out], ids [Q, k_out]) ascending."""
     part_ids = part_ids.long()
     pv = vectors[part_ids]                        # [n, p_max, d]
     n, p_max, d = pv.shape
-    pok = valid[part_ids].to(torch.bool)
-    if keep is not None:
-        pok = pok & keep[part_ids].to(torch.bool)
+    pok = _row_mask(valid, part_ids, keep, attrs, program)
     pid = ids[part_ids] if ids is not None else flat_row_ids(part_ids, p_max)
     s = scores_ref(queries, pv.reshape(n * p_max, d), metric)
     return _select(s, pok, pid, qsel, k_out)
@@ -82,16 +124,15 @@ def int_domain_dots(q_i8, alpha, beta, flat_c):
 
 def sq_scan_ref(q_i8, alpha, beta, lo, scale, codes, valid, ids, part_ids,
                 k_out: int, metric: str = "l2", qsel=None, keep=None,
-                norms: Optional[torch.Tensor] = None):
+                norms: Optional[torch.Tensor] = None, attrs=None,
+                program=None):
     """Plain version of the int8-domain SQ scan + top-k kernel, on the
     folded queries (q_i8 [2Q, d], alpha [2Q], beta [Q]). `ids` None emits
     flat row ids; `norms` None decodes and reduces the codes in-scan."""
     part_ids = part_ids.long()
     pc = codes[part_ids]                          # [n, p_max, d] int8
     n, p_max, d = pc.shape
-    pok = valid[part_ids].to(torch.bool)
-    if keep is not None:
-        pok = pok & keep[part_ids].to(torch.bool)
+    pok = _row_mask(valid, part_ids, keep, attrs, program)
     dots = int_domain_dots(q_i8, alpha, beta, pc.reshape(n * p_max, d))
     if metric in ("ip", "cosine"):
         s = -dots

@@ -36,35 +36,40 @@ def sq_scan_topk(
     qsel: Optional[torch.Tensor] = None,   # [Q, n] bool
     keep: Optional[torch.Tensor] = None,   # [k, p_max] bool post-filter
     norms: Optional[torch.Tensor] = None,  # [k, p_max] f32 ||decode(c)||^2
+    attrs: Optional[torch.Tensor] = None,  # [k, p_max, n_attr] f32
+    program=None,                   # core/hybrid.Program over attrs
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (approximate scores [Q, k_out] f32, ids [Q, k_out] int32), in
-    ivf_scan_topk's order and conventions (`part_ids` in [0, k))."""
+    ivf_scan_topk's order and conventions (`part_ids` in [0, k); `keep`
+    and `program` filter rows as there)."""
     q_i8, alpha, beta = quantize.fold_queries(QuantStats(lo=lo, scale=scale),
                                               queries)
     norms = norms if metric == "l2" else None
     return sq_scan_folded(q_i8, alpha, beta, lo, scale, codes, valid, ids,
                           part_ids, k_out, metric=metric, qsel=qsel,
-                          keep=keep, norms=norms)
+                          keep=keep, norms=norms, attrs=attrs,
+                          program=program)
 
 
 def sq_scan_folded(q_i8, alpha, beta, lo, scale, codes, valid, ids, part_ids,
                    k_out: int, metric: str = "l2", qsel=None, keep=None,
-                   norms=None):
+                   norms=None, attrs=None, program=None):
     """The scan on already-folded queries (the kernel's own inputs)."""
     if q_i8.device.type == "cpu":
         return sq_scan_plain(q_i8, alpha, beta, lo, scale, codes, valid, ids,
                              part_ids, k_out, metric=metric, qsel=qsel,
-                             keep=keep, norms=norms)
+                             keep=keep, norms=norms, attrs=attrs,
+                             program=program)
     return _launch(q_i8, alpha, beta, lo, scale, codes, valid, ids, part_ids,
-                   k_out, metric, qsel, keep, norms)
+                   k_out, metric, qsel, keep, norms, attrs, program)
 
 
 def _launch(q_i8, alpha, beta, lo, scale, codes, valid, ids, part_ids,
-            k_out, metric, qsel, keep, norms):
+            k_out, metric, qsel, keep, norms, attrs, program):
     global LAUNCHES
     dev = q_i8.device
     common.require_cuda("sq_scan", dev, alpha, beta, lo, scale, codes, valid,
-                        ids, part_ids, qsel, keep, norms)
+                        ids, part_ids, qsel, keep, norms, attrs)
     n_q = beta.shape[0]
     d = q_i8.shape[1]
     kp, p_max, dc = codes.shape
@@ -76,6 +81,8 @@ def _launch(q_i8, alpha, beta, lo, scale, codes, valid, ids, part_ids,
     common.require_shape("sq_scan", (n_q, n), qsel=qsel)
     common.require_shape("sq_scan", (d,), lo=lo, scale=scale)
     common.require_shape("sq_scan", (2 * n_q,), alpha=alpha)
+    attrs, prog, n_attr = common.program_args("sq_scan", kp, p_max, attrs,
+                                              program)
     if n_q == 0 or n == 0 or k_out == 0:
         return (torch.full((n_q, k_out), MASKED_SCORE, dtype=torch.float32,
                            device=dev),
@@ -93,9 +100,10 @@ def _launch(q_i8, alpha, beta, lo, scale, codes, valid, ids, part_ids,
            common.as_dtype(norms if metric == "l2" else None, torch.float32),
            common.as_dtype(valid, torch.int8),
            common.as_dtype(keep, torch.int8),
-           common.as_dtype(ids, torch.int32),
-           common.as_dtype(part_ids, torch.int32),
-           common.as_dtype(qsel, torch.int8)]
+           attrs]
+    ins2 = [common.as_dtype(ids, torch.int32),
+            common.as_dtype(part_ids, torch.int32),
+            common.as_dtype(qsel, torch.int8)]
     # selected pair lists [n_q, n] + their counts [n_q], with qsel only
     pairs = torch.empty((n_q * (n + 1),) if qsel is not None else (0,),
                         dtype=torch.int32, device=dev)
@@ -104,8 +112,9 @@ def _launch(q_i8, alpha, beta, lo, scale, codes, valid, ids, part_ids,
     part_cnt = torch.empty((n_q, n_chunks), dtype=torch.int32, device=dev)
     pair_cnt = pairs[n_q * n:] if qsel is not None else None
     rc = build.load("sq_scan").sq_scan_launch(
-        *[common.ptr(a) for a in ins], n_q, d, p_max, n, n_chunks, k_out,
-        int(metric == "l2"), common.ptr(pairs), common.ptr(pair_cnt),
+        *[common.ptr(a) for a in ins], prog, *[common.ptr(a) for a in ins2],
+        n_q, d, p_max, n, n_chunks, k_out, int(metric == "l2"), n_attr,
+        common.ptr(pairs), common.ptr(pair_cnt),
         common.ptr(part_keys), common.ptr(part_cnt), common.ptr(out_s),
         common.ptr(out_i), common.stream_ptr(dev))
     build.check_launch("sq_scan", rc)

@@ -7,6 +7,9 @@
     eng.build()                      # initial clustering
     rs = eng.query(q, Q.knn(k=100).probe(8))
     rs = eng.query(q, Q.knn(k=10).where(Pred(0, "==", 3.0)))  # optimizer
+    eng.maintain(until_idle=True)    # drain incremental maintenance
+    eng.maintain_step()              # ... or one bounded quantum at a time
+    eng.scheduler.start_daemon()     # ... or on a background thread
 
     paged = MicroNN(dim=128, path="db.sqlite", quantize="int8",
                     memory_budget_mb=10)   # disk-resident mode
@@ -26,8 +29,17 @@ the delta are on the device, and the scan tier is paged from SQLite
 through a budget-bounded frame pool (storage/pager.py), private or shared
 (`frame_pool` + `tenant`). Both run on the engine's device: "cuda" unless
 the caller asks for the CPU (`device="cpu"`, where the kernels' plain
-versions run). Not ported yet (ROADMAP Queue A): maintenance beyond the
-forced flush, tracing and the flight recorder.
+versions run).
+
+Maintenance (paper §3.6): the monitor (core/monitor.py) turns per-partition
+signals into a prioritised work queue that the scheduler
+(storage/scheduler.py) drains in bounded quanta -- partial delta flushes,
+2-means splits, merges, local reclusters, tombstone repacks -- each made
+durable as codes first, then one SQLite repair transaction; both modes
+leave identical durable states after the same steps. `maintain()` with no
+argument acts on the monitor's single verdict, `force="rebuild"`
+re-clusters everything (through the kmeans_assign kernel). Not ported yet
+(ROADMAP Queue A): tracing and the flight recorder.
 """
 from __future__ import annotations
 
@@ -43,6 +55,7 @@ import torch
 from ..core import delta as delta_ops
 from ..core import executor, ivf, kmeans, maintenance, quantize
 from ..core.hybrid import AttributeStats, Node
+from ..core.monitor import IndexMonitor, MonitorConfig, WorkItem
 from ..core.optimizer import HybridOptimizer
 from ..core.query import Q, QuerySpec, ResultSet
 from ..core.types import (INVALID_ID, DeltaStore, IVFConfig, PagedIndex,
@@ -50,18 +63,15 @@ from ..core.types import (INVALID_ID, DeltaStore, IVFConfig, PagedIndex,
                           resolve_device)
 from ..kernels import ops
 from . import pager
+from .scheduler import MaintenanceScheduler, StepReport
 from .store import VectorStore
-
-_MAINTENANCE_TODO = (
-    "only maintain(force='flush') is ported (ROADMAP Queue A item 11: "
-    "maintenance planning)")
 
 
 def _locked(fn):
     """Run the method under the engine's write mutex (`self.lock`): a
-    session commit, a direct upsert/delete and a flush never interleave
-    partial transactions. Re-entrant, since write paths nest (upsert ->
-    maintain(force="flush"))."""
+    session commit, a direct upsert/delete and a maintenance quantum
+    (hand-cranked or the daemon's) never interleave partial transactions.
+    Re-entrant, since write paths nest (upsert -> maintain(force="flush"))."""
 
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
@@ -124,10 +134,12 @@ class WriteSession:
 class MicroNN:
     def __init__(self, dim: int, n_attr: int = 0, path: str = ":memory:",
                  config: Optional[IVFConfig] = None,
+                 monitor: Optional[MonitorConfig] = None,
                  quantize: Optional[str] = None,
                  rerank_factor: Optional[int] = None,
                  device=None,
                  memory_budget_mb: Optional[float] = None,
+                 max_rows_per_step: int = 4096,
                  frame_pool=None,
                  tenant: Optional[str] = None):
         """`quantize="int8"` turns on the scalar-quantized tier: searches
@@ -143,7 +155,11 @@ class MicroNN:
         most that many bytes on the device; an int8 index reranks from
         the store. `frame_pool` + `tenant` page through a shared
         fleet.pool.FramePool (on the same device) under its budget
-        instead of a private pool; `tenant` names this engine's frames."""
+        instead of a private pool; `tenant` names this engine's frames.
+
+        `monitor` sets the maintenance triggers (core/monitor.py);
+        `max_rows_per_step` bounds one maintenance quantum: one
+        `maintain_step()` touches at most that many rows."""
         if memory_budget_mb is not None and not memory_budget_mb > 0:
             raise ValueError(f"memory_budget_mb must be > 0: "
                              f"{memory_budget_mb}")
@@ -163,8 +179,12 @@ class MicroNN:
         if rerank_factor is not None:
             cfg = dataclasses.replace(cfg, rerank_factor=rerank_factor)
         self.config = cfg
+        self.monitor = IndexMonitor(monitor)
         self.index = None   # IVFIndex (resident) or PagedIndex (paged)
         self.optimizer: Optional[HybridOptimizer] = None
+        self.maintenance_log = []
+        self.scheduler = MaintenanceScheduler(
+            self, max_rows_per_step=max_rows_per_step)
 
     @property
     def paged(self) -> bool:
@@ -247,6 +267,7 @@ class MicroNN:
         self._refresh_stats()
 
     def close(self):
+        self.scheduler.stop_daemon()
         self.store.close()
 
     # -- writes ---------------------------------------------------------------
@@ -377,25 +398,254 @@ class MicroNN:
 
     # -- maintenance ----------------------------------------------------------
     @_locked
-    def maintain(self, force: Optional[str] = None):
-        """The forced delta flush: fold every live delta row into its
-        nearest partition. Resident mode flushes on the device (the durable
-        rows stay in the pending partition until the next build, as in the
-        reference's forced flush); paged mode moves them durably
-        (_paged_flush). Automatic decisions and force="rebuild" are not
-        ported yet."""
-        if force != "flush":
-            raise NotImplementedError(_MAINTENANCE_TODO)
+    def maintain(self, force: Optional[str] = None,
+                 until_idle: bool = False,
+                 max_steps: Optional[int] = None):
+        """Run maintenance.
+
+        `maintain(until_idle=True)` is the steady-state path: the
+        scheduler drains the monitor's work queue (partial flushes,
+        splits, merges, local reclusters, repacks) in `max_rows_per_step`
+        quanta, never a full rebuild, and returns the StepReports
+        (`max_steps` bounds how many).
+
+        `maintain(force="flush" | "rebuild")`, or no argument for the
+        monitor's verdict, runs whole-index maintenance and returns the
+        action taken ("flush", "rebuild" or None). The resident forced
+        flush folds the delta on the device (the durable rows stay in the
+        pending partition until the next build, as in the reference); the
+        paged flush moves them durably. A rebuild re-clusters every live
+        row through ivf.build_index (resident) or the streamed paged build,
+        both of which run the kmeans_assign kernel."""
+        if force not in (None, "flush", "rebuild"):
+            raise ValueError(f"force must be None, 'flush' or 'rebuild': "
+                             f"{force!r}")
+        if self.index is None:
+            return [] if until_idle else None
+        if until_idle:
+            if force is not None:
+                raise ValueError("until_idle excludes force")
+            return self.scheduler.drain(max_steps=max_steps)
+        if self.paged:
+            return self._maintain_paged(force)
+        action = force or self.monitor.check(self.index).action
+        if action == "flush":
+            self.index, stats = maintenance.flush_delta(self.index)
+            self.maintenance_log.append(stats)
+            self.store.update_centroids(*self._centroid_state())
+            self._persist_maintenance_state()
+            return "flush"
+        if action == "rebuild":
+            self.index, stats = maintenance.full_rebuild(self.index)
+            self.maintenance_log.append(stats)
+            # a rebuild retrains the quantizer, so every code changes:
+            # codes + stats persist before the clustering swap (build()'s
+            # crash ordering)
+            self._persist_codes()
+            ids, _, _ = self.store.all_rows()
+            assign = self._current_assignment()
+            self.store.set_partitions(ids, assign[ids],
+                                      *self._centroid_state())
+            self._persist_maintenance_state()
+            self._refresh_stats()
+            return "rebuild"
+        return None
+
+    @_locked
+    def maintain_step(self) -> Optional[StepReport]:
+        """One bounded maintenance quantum (<= max_rows_per_step rows): the
+        highest-priority item of the monitor's work queue. Queries between
+        steps see a consistent mixed old/new partition state. None when
+        the index is idle."""
         if self.index is None:
             return None
+        return self.scheduler.step()
+
+    def _execute_work_item(self, item: WorkItem,
+                           max_rows: int) -> Optional[StepReport]:
+        """Scheduler callback: run one work item. None when it plans to a
+        no-op (the scheduler then skips it)."""
+        if item.action == "flush":
+            return self._flush_step(max_rows)
+        if item.action == "repack":
+            # device-only tombstone repack: no durable I/O by contract
+            if self.paged:
+                raise ValueError("paged frames carry no tombstones")
+            self.index = maintenance.repack_partition(self.index,
+                                                      item.pids[0])
+            return StepReport("repack", item.pids, item.rows, 0)
+        idx = self.index
+        cents, csz = self._centroid_state()
+        counts = np.asarray(idx.counts) if self.paged \
+            else idx.counts.cpu().numpy()
+        fetch = self._fetch_rows_paged if self.paged \
+            else self._fetch_rows_resident
+        mcfg = self.monitor.cfg
+        if item.action == "split":
+            plan = maintenance.plan_split(
+                cents, csz, counts, item.pids[0], fetch, row_budget=max_rows,
+                n_local=mcfg.split_neighbors)
+        elif item.action == "merge":
+            plan = maintenance.plan_merge(cents, csz, counts, item.pids[0],
+                                          item.pids[1], fetch)
+        elif item.action == "recluster":
+            plan = maintenance.plan_local_recluster(
+                cents, csz, counts, item.pids[0], fetch, row_budget=max_rows,
+                n_local=mcfg.repair_neighbors)
+        else:
+            raise ValueError(f"unknown maintenance action {item.action!r}")
+        if plan is None:
+            return None
+        return self._apply_repair(plan)
+
+    def _flush_step(self, max_rows: int) -> StepReport:
+        """A (possibly partial) delta flush as one scheduler quantum. Unlike
+        the forced resident flush it also moves the rows durably (as the
+        paged flush does), so the two modes leave identical durable states
+        behind every step."""
         if self.paged:
-            self._paged_flush()
-            return "flush"
-        self.index, _ = maintenance.flush_delta(self.index)
-        self.store.update_centroids(self.index.centroids.cpu().numpy(),
-                                    self.index.csizes.cpu().numpy())
+            stats = self._paged_flush(max_rows=max_rows)
+            if stats is None:
+                return StepReport("flush", (), 0, 0)
+            return StepReport("flush", (), stats.rows_moved,
+                              stats.bytes_written)
+        d = self.index.delta
+        live = np.nonzero(d.valid.cpu().numpy())[0][:max_rows]
+        dids = d.ids.cpu().numpy()[live]
+        dx = d.vectors.cpu().numpy()[live]     # metric-normalised
+        dcod = d.codes.cpu().numpy()[live] if d.codes is not None else None
+        assign = maintenance.assign_nearest_centroid(
+            dx, self.index.centroids) if live.size \
+            else np.zeros((0,), np.int64)
+        self.index, stats = maintenance.flush_delta(
+            self.index, max_rows=max_rows, assign=assign)
+        self.maintenance_log.append(stats)
+        with self.store.transaction():        # one atomic durable flush
+            if live.size and dcod is not None:
+                # codes first (the crash contract: valid either way)
+                self.store.set_code_tier(
+                    dids, dcod, *quantize.stats_to_arrays(self.index.qstats))
+            # row moves + the touched centroids only (never O(k) a quantum)
+            touched = np.unique(assign)
+            cents, csz = self._centroid_state()
+            self.store.apply_repair(dids, assign, touched, cents[touched],
+                                    csz[touched])
+            self._persist_maintenance_state()
+        return StepReport("flush", (), stats.rows_moved,
+                          stats.bytes_written)
+
+    # -- local repair (split / merge / recluster) -----------------------------
+    def _fetch_rows_resident(self, pids):
+        """RowFetch over the packed device layout: one gather of the listed
+        partitions, rows sorted by asset id (the order SQLite's clustered
+        scan yields -- the paged planner sees the same rows)."""
+        pids = [int(p) for p in pids]
+        vec, vid, vat, val, cod = maintenance._partition_rows(self.index,
+                                                              pids)
+        out = {}
+        for j, p in enumerate(pids):
+            sel = np.nonzero(val[j])[0]
+            ids = vid[j][sel]
+            order = np.argsort(ids, kind="stable")
+            out[p] = maintenance.RowBlock(
+                ids=ids[order].astype(np.int32), vecs=vec[j][sel][order],
+                attrs=vat[j][sel][order],
+                codes=None if cod is None else cod[j][sel][order])
+        return out
+
+    def _fetch_rows_paged(self, pids):
+        """RowFetch streaming the neighbourhood from SQLite in one batched
+        read; rows arrive sorted by asset id and are metric-normalised as
+        the pager's fault path does."""
+        counts = self.index.counts
+        pids = [int(p) for p in pids]
+        p_max = int(max(max(counts[p] for p in pids), 1))
+        blocks = self.store.scan_partitions(pids, p_max, with_vecs=True)
+        vecs = normalize_rows(blocks.vecs, self.config.metric)
+        out = {}
+        for j, p in enumerate(pids):
+            m = int(blocks.valid[j].sum())
+            out[p] = maintenance.RowBlock(
+                ids=blocks.ids[j, :m].astype(np.int32), vecs=vecs[j, :m])
+        return out
+
+    def _apply_repair(self, plan) -> StepReport:
+        """Persist + apply one RepairPlan: (1) codes for the touched rows
+        that lack one (the existing quantizer, so valid under either
+        clustering); (2) the row moves + touched centroids as ONE
+        transaction (VectorStore.apply_repair) -- a crash between the two
+        serves the pre-repair clustering; only then the device or paged
+        state."""
+        idx = self.index
+        quantized = idx.quantized
+        code_bytes = 0
+        if quantized and plan.rows:
+            _, found = self.store.codes_for(plan.row_ids)
+            if not found.all():
+                missing = ~found
+                enc = quantize.encode_np(idx.qstats, plan.row_vecs[missing])
+                self.store.set_code_tier(
+                    plan.row_ids[missing], enc,
+                    *quantize.stats_to_arrays(idx.qstats))
+                code_bytes = int(missing.sum()) * self.store.dim
+        # only the durably moved rows get UPDATEs (rows still in the
+        # pending partition are promoted too), only the touched partitions
+        # centroid rewrites
+        old_pid = self.store.partitions_for(plan.row_ids)
+        movedm = old_pid != plan.assign
+        self.store.apply_repair(
+            plan.row_ids[movedm], plan.assign[movedm], plan.pids,
+            plan.centroids, plan.csizes)
+        n_attr = self.store.n_attr
+        row_b = 4 * self.store.dim + 4 + 4 * n_attr + 1
+        bytes_written = int(movedm.sum()) * row_b \
+            + len(plan.pids) * self.store.dim * 4 + code_bytes
+        p_max_before = idx.p_max
+        if self.paged:
+            self._apply_repair_paged(plan)
+        else:
+            self.index = maintenance.apply_plan(self.index, plan)
+        self.maintenance_log.append(maintenance.MaintenanceStats(
+            kind=plan.kind, rows_moved=int(movedm.sum()),
+            partitions_touched=len(plan.pids), bytes_written=bytes_written,
+            p_max_before=p_max_before, p_max_after=self.index.p_max))
         self._persist_maintenance_state()
-        return "flush"
+        return StepReport(plan.kind, tuple(int(p) for p in plan.pids),
+                          plan.rows, bytes_written)
+
+    def _apply_repair_paged(self, plan):
+        """Paged apply: the durable tier is the scan tier, so the repair is
+        already in place -- update the resident metadata (centroids,
+        csizes, counts, drift), invalidate exactly the touched frames, and
+        grow the frame geometry when a partition outgrew p_max."""
+        idx = self.index
+        k = idx.k
+        k_new = max(k, plan.k_after)
+        cents, csz = self._centroid_state()
+        counts = np.array(idx.counts)
+        drift = np.array(idx.drift, np.float32) if idx.drift is not None \
+            else np.zeros((k,), np.float32)
+        if k_new > k:
+            grow = k_new - k
+            cents = np.pad(cents, [(0, grow), (0, 0)])
+            csz = np.pad(csz, (0, grow))
+            counts = np.pad(counts, (0, grow))
+            drift = np.pad(drift, (0, grow))
+        cents[plan.pids] = plan.centroids
+        csz[plan.pids] = plan.csizes
+        sizes = np.asarray([(plan.assign == p).sum() for p in plan.pids])
+        counts[plan.pids] = sizes
+        drift[plan.pids] = 0.0
+        idx.centroids = torch.as_tensor(cents, device=self.device)
+        idx.csizes = torch.as_tensor(csz, device=self.device)
+        idx.counts = counts
+        idx.drift = drift
+        idx.cache.invalidate([int(p) for p in plan.pids])
+        pad = self.config.pad_to
+        new_p_max = max(idx.cache.p_max,
+                        -(-int(max(sizes.max(), 1)) // pad) * pad)
+        if new_p_max > idx.cache.p_max:
+            idx.cache.resize(new_p_max)
 
     # -- queries --------------------------------------------------------------
     def query(self, queries: np.ndarray,
@@ -480,11 +730,17 @@ class MicroNN:
         """Operational counters with the reference's keys in both modes:
         pager hits/misses/evictions (zero in resident mode), resident
         scan-tier bytes (resident: the f32 tier + codes; paged: the frame
-        pool, at most the budget), plus the kernel launch counts of this
+        pool, at most the budget), the maintenance scheduler's queue depth,
+        daemon state and counters, plus the kernel launch counts of this
         process."""
+        sched = self.scheduler
         out = {"paged": self.paged, "hits": 0, "misses": 0, "evictions": 0,
                "resident_bytes": 0, "budget_bytes": None,
                "device": str(self.device),
+               "scheduler_depth": sched.queue_depth(),
+               "daemon_alive": sched.daemon_alive,
+               "daemon_steps": sched.daemon_steps,
+               "scheduler": sched.stats(),
                "launches": ops.launch_counts()}
         idx = self.index
         if idx is None:
@@ -600,17 +856,60 @@ class MicroNN:
         if len(pids):
             self._delta_append(pids, pvecs, self.store.attributes_for(pids))
 
-    def _paged_flush(self):
-        """Paged flush: move the live delta rows into their nearest
+    def _maintain_paged(self, force: Optional[str]) -> Optional[str]:
+        """Paged whole-index maintenance: the forced action, or the
+        monitor's growth / delta-pressure verdict."""
+        idx = self.index
+        mcfg = self.monitor.cfg
+        action = force
+        if action is None:
+            nonempty = idx.counts[idx.counts > 0]
+            mean_size = float(nonempty.mean()) if nonempty.size else 0.0
+            growth = mean_size / max(idx.base_mean_size, 1.0) - 1.0
+            if growth >= mcfg.growth_rebuild_threshold:
+                action = "rebuild"
+            elif idx.delta.count >= \
+                    mcfg.delta_flush_fraction * idx.delta.capacity:
+                action = "flush"
+        if action == "flush":
+            self._paged_flush()
+            return "flush"
+        if action == "rebuild":
+            # a full re-cluster straight from the durable tier (pending rows
+            # included); _attach_paged re-sizes the pool and drops every
+            # frame, which is the rebuild's cache invalidation
+            n_rows = self.store.count()
+            p_before = idx.cache.p_max
+            self._build_paged()
+            row_b = 4 * self.store.dim + 4 + 4 * self.store.n_attr + 1 \
+                + (self.store.dim if self.config.quantize == "int8" else 0)
+            self.maintenance_log.append(maintenance.MaintenanceStats(
+                kind="full", rows_moved=n_rows,
+                partitions_touched=self.index.k,
+                bytes_written=n_rows * row_b
+                + self.index.k * self.store.dim * 4,
+                p_max_before=p_before, p_max_after=self.index.cache.p_max))
+            return "rebuild"
+        return None
+
+    def _paged_flush(self, max_rows: Optional[int] = None):
+        """Paged flush: move the live delta rows (the first `max_rows` of
+        them; the rest stay searchable in the delta) into their nearest
         partitions durably (the clustered SQLite table is the scan tier
         here), write their codes, update the touched centroids by the
         running-mean rule, then invalidate the touched frames. Rows stay
-        searchable in the delta until the delta is replaced at the end
-        (a copy seen twice meanwhile is deduped by id)."""
+        searchable in the delta until the delta is replaced at the end (a
+        copy seen twice meanwhile is deduped by id). Returns the flush's
+        MaintenanceStats (None without live rows)."""
         idx = self.index
         d = idx.delta
         quantized = idx.quantized
         live = np.nonzero(d.valid.cpu().numpy())[0]
+        deferred = np.zeros((0,), np.int64)
+        if max_rows is not None and live.size > max_rows:
+            live, deferred = live[:max_rows], live[max_rows:]
+        p_before = idx.cache.p_max
+        stats = None
         if live.size:
             dx = d.vectors.cpu().numpy()[live]          # metric-normalised
             dids = d.ids.cpu().numpy()[live]
@@ -622,8 +921,7 @@ class MicroNN:
                     else quantize.encode_np(idx.qstats, dx)
                 self.store.set_code_tier(
                     dids, dcod, *quantize.stats_to_arrays(idx.qstats))
-            cent = idx.centroids.cpu().numpy().copy()
-            csz = idx.csizes.cpu().numpy().copy()
+            cent, csz = self._centroid_state()
             if idx.drift is None:
                 idx.drift = np.zeros((idx.k,), np.float32)
             maintenance.running_mean_update(cent, csz, dx, assign, touched,
@@ -641,8 +939,18 @@ class MicroNN:
                             -(-int(idx.counts.max()) // pad) * pad)
             if new_p_max > idx.cache.p_max:   # a partition outgrew a frame
                 idx.cache.resize(new_p_max)
-        idx.delta = maintenance.compact_delta(
-            d, np.zeros((0,), np.int64), idx.n_attr, quantized, idx.qstats)
+            stats = maintenance.MaintenanceStats(
+                kind="incremental", rows_moved=int(live.size),
+                partitions_touched=int(len(touched)),
+                bytes_written=int(live.size
+                                  * (4 * idx.dim + 4 + 4 * idx.n_attr + 1
+                                     + (idx.dim if quantized else 0))
+                                  + len(touched) * idx.dim * 4),
+                p_max_before=p_before, p_max_after=idx.cache.p_max)
+            self.maintenance_log.append(stats)
+        idx.delta = maintenance.compact_delta(d, deferred, idx.n_attr,
+                                              quantized, idx.qstats)
+        return stats
 
     # -- helpers --------------------------------------------------------------
     def _refresh_stats(self):
@@ -689,5 +997,6 @@ class MicroNN:
         return out
 
     def _centroid_state(self) -> Tuple[np.ndarray, np.ndarray]:
-        return (self.index.centroids.cpu().numpy(),
-                self.index.csizes.cpu().numpy())
+        """Host copies of the centroids and their running counts."""
+        return (self.index.centroids.cpu().numpy().copy(),
+                self.index.csizes.cpu().numpy().astype(np.float32))

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.core import executor, ivf, quantize, query
-from repro_torch.core.hybrid import Pred, compile_filter
+from repro_torch.core.hybrid import And, Or, Pred, compile_filter
 from repro_torch.core.types import IVFConfig
 from repro_torch.kernels import common, ivf_scan, kmeans_assign, ops, sq_scan
 from repro_torch.storage.engine import MicroNN
@@ -320,6 +320,88 @@ def test_ivf_scan_kernel_solo_equals_batched_bitwise(cuda, route,
             got = scan(slice(0, 32))
         assert torch.equal(got[0], whole[0]), (attr, value)
         assert torch.equal(got[1], whole[1]), (attr, value)
+
+
+# the last: a 33-value IN-list, whose Or folds its results every 8 leaves
+PROGRAM_PREDS = [Pred(1, "<", 0.3), Pred(0, "==", 3),
+                 And((Pred(0, "!=", 2),
+                      Or((Pred(1, ">=", 0.5), Pred(0, "<", 1))))),
+                 Or(tuple(Pred(0, "==", v)
+                          for v in [1.0, 3.0] + [10.0 + i for i in range(31)]))]
+
+
+@pytest.mark.parametrize("route", ["ann", "exact", "frames"])
+@pytest.mark.parametrize("pred", PROGRAM_PREDS,
+                         ids=["lt", "eq", "tree", "in-list"])
+def test_scan_kernels_program_route_equals_mask_route(cuda, route, pred):
+    """The predicate program evaluated inside K1 and K2 returns what the
+    mask route returns, bit for bit, and agrees with the plain version:
+    on the ANN route (qsel), K1's exact route (16 queries: row sharing in
+    groups of 8) and a frame-pool route (asset ids, K2 over norms)."""
+    x = _inputs(cuda, seed=31, n_q=16, n_probe=6)
+    g = torch.Generator().manual_seed(32)
+    x["attrs"][..., 1] = torch.rand(x["attrs"].shape[:2], generator=g
+                                    ).to(cuda)
+    qsel = None if route == "exact" else x["qsel"]
+    ids = x["ids"]
+    if route == "frames":
+        ids = (torch.randperm(ids.numel(), generator=g).to(torch.int32)
+               .reshape(ids.shape) + 1000).to(cuda)
+    f = compile_filter(pred)
+    keep = f(x["attrs"])
+    tol = _tol(x)
+    k1 = (x["q"], x["vec"], x["valid"], ids, x["union"], 50)
+    before = ivf_scan.LAUNCHES
+    prog = ivf_scan.ivf_scan_topk(*k1, qsel=qsel, attrs=x["attrs"],
+                                  program=f.program)
+    assert ivf_scan.LAUNCHES == before + 1
+    mask = ivf_scan.ivf_scan_topk(*k1, qsel=qsel, keep=keep)
+    torch.cuda.synchronize()
+    assert torch.equal(prog[0], mask[0]) and torch.equal(prog[1], mask[1])
+    _same(ivf_scan.ivf_scan_plain(*k1, qsel=qsel, attrs=x["attrs"],
+                                  program=f.program), prog, tol)
+    d = x["vec"].shape[-1]
+    st = quantize.train(x["vec"].reshape(-1, d))
+    codes = quantize.encode(st, x["vec"])
+    norms = quantize.row_norms(st, codes)
+    q_i8, alpha, beta = quantize.fold_queries(st, x["q"])
+    k2 = (q_i8, alpha, beta, st.lo, st.scale, codes, x["valid"],
+          ids if route == "frames" else None, x["union"], 120)
+    before = sq_scan.LAUNCHES
+    prog = sq_scan.sq_scan_folded(*k2, qsel=qsel, norms=norms,
+                                  attrs=x["attrs"], program=f.program)
+    assert sq_scan.LAUNCHES == before + 1
+    mask = sq_scan.sq_scan_folded(*k2, qsel=qsel, norms=norms, keep=keep)
+    torch.cuda.synchronize()
+    assert torch.equal(prog[0], mask[0]) and torch.equal(prog[1], mask[1])
+    err = _same(sq_scan.sq_scan_plain(*k2, qsel=qsel, norms=norms,
+                                      attrs=x["attrs"], program=f.program),
+                prog, tol)
+    assert err == 0.0           # exact accumulators over the norms
+
+
+def test_scan_kernels_program_edge_values(cuda):
+    """Values the kernel must compare exactly as the plain version does:
+    the float32 nearest 0.1 (not 0.1 itself), ties at the bound, match
+    bits, and a program that keeps nothing."""
+    x = _inputs(cuda, seed=33, n_q=8)
+    g = torch.Generator().manual_seed(34)
+    pool = torch.tensor([0.1, 0.3, 0.5, 0.25, 7.0])
+    x["attrs"] = pool[torch.randint(0, 5, x["attrs"].shape, generator=g)
+                      ].to(cuda)
+    for pred in (Pred(0, "==", 0.1), Pred(1, "<=", 0.3),
+                 Pred(0, "match", 3), Or((Pred(0, "!=", 0.1),
+                                          Pred(1, "==", 7.0))),
+                 Pred(0, ">", 100.0)):
+        f = compile_filter(pred)
+        k1 = (x["q"], x["vec"], x["valid"], x["ids"], x["union"], 80)
+        prog = ivf_scan.ivf_scan_topk(*k1, qsel=x["qsel"], attrs=x["attrs"],
+                                      program=f.program)
+        mask = ivf_scan.ivf_scan_topk(*k1, qsel=x["qsel"],
+                                      keep=f(x["attrs"]))
+        torch.cuda.synchronize()
+        assert torch.equal(prog[0], mask[0]), pred
+        assert torch.equal(prog[1], mask[1]), pred
 
 
 def _to(index, dev):

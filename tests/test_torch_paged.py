@@ -650,8 +650,8 @@ def test_paged_budget_held_stats_and_refusals(jax_written):
         tpag.query(X[:2], Q.knn(k=5).where(Pred(0, "==", 1)).prefilter(64))
     with pytest.raises(ValueError, match="union_cap"):
         tpag.query(X[:2], Q.knn(k=5).union_cap(4))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpag.maintain(force="rebuild")
+    with pytest.raises(ValueError, match="force"):
+        tpag.maintain(force="compact")
     # "auto" in paged mode skips the optimizer: a post-filter
     auto = tpag.query(X[:4], Q.knn(k=10).where(Pred(0, "==", 1)))
     post = tpag.query(X[:4], Q.knn(k=10).where(Pred(0, "==", 1))

@@ -192,3 +192,77 @@ def test_engine_hybrid_and_paged_build_launch_kernels(cuda, tmp_path):
     got = pag.query(X[:4], Q.knn(k=1, n_probe=8)).to_numpy()[0]
     assert list(got[:, 0]) == [0, 1, 2, 3]
     pag.close()
+
+
+@pytest.mark.parametrize("tier", ["none", "int8"])
+def test_maintenance_on_cuda_matches_cpu(cuda, tmp_path, tier):
+    """The same splits and merges run on the card (resident and paged) and
+    on the CPU leave the same durable state (partition of every asset,
+    centroids, csizes, drift), and paged == resident bit for bit on the
+    card afterwards."""
+    import shutil
+    X, attrs, q = _data()
+    cfg = IVFConfig(dim=DIM, target_partition_size=50, kmeans_iters=10,
+                    delta_capacity=128, quantize=tier, rerank_factor=4)
+    path = str(tmp_path / f"m{tier}.db")
+    eng = MicroNN(dim=DIM, n_attr=2, path=path, config=cfg, device="cpu")
+    eng.upsert(np.arange(len(X)), X, attrs)
+    eng.build()
+    eng.close()
+    engines = []
+    for suffix, dev, budget in ((".cpu", "cpu", None), (".res", None, None),
+                                (".pag", None, 0.1)):
+        shutil.copy(path, path + suffix)
+        e = MicroNN(dim=DIM, n_attr=2, path=path + suffix, config=cfg,
+                    device=dev, memory_budget_mb=budget)
+        e.recover()
+        engines.append(e)
+    rng = np.random.default_rng(5)
+    c0 = X[:50].mean(0)
+    for wave in range(2):
+        nv = (c0 + rng.normal(size=(100, DIM)) * 0.3).astype(np.float32)
+        ids = np.arange(9000 + wave * 100, 9100 + wave * 100)
+        for e in engines:
+            e.upsert(ids, nv, attrs[:100])
+            e.delete(np.arange(wave * 200, wave * 200 + 150))
+        steps = [[(r.action, r.pids, r.rows) for r in e.maintain(
+            until_idle=True) if r.action != "repack"] for e in engines]
+        assert steps[0] == steps[1] == steps[2]
+    assert any(s.kind in ("split", "merge")
+               for s in engines[1].maintenance_log)
+
+    def durable(e):
+        ids, parts, _ = e.store.all_rows()
+        cents, csz = e.store.centroids()
+        return ids, parts, cents, csz, e.store.maintenance_state()[1]
+    want = durable(engines[0])
+    for e in engines[1:]:
+        for a, b in zip(durable(e), want):
+            np.testing.assert_array_equal(a, b)
+    res, pag = engines[1], engines[2]
+    for n_q in (1, 16):
+        for spec in (Q.knn(k=10, n_probe=8),
+                     Q.knn(k=10, n_probe=8).where(Pred(0, "==", 2))
+                     .postfilter()):
+            _bitwise(res.query(q[:n_q], spec), pag.query(q[:n_q], spec))
+    for e in engines:
+        e.close()
+
+
+def test_rebuild_on_cuda_launches_kmeans_assign(cuda, tmp_path):
+    """maintain(force="rebuild") re-clusters through K3 in both modes."""
+    X, attrs, q = _data(n=2000)
+    cfg = IVFConfig(dim=DIM, target_partition_size=50, kmeans_iters=10,
+                    quantize="int8")
+    for budget in (None, 0.1):
+        path = str(tmp_path / f"r{budget}.db")
+        eng = MicroNN(dim=DIM, n_attr=2, path=path, config=cfg,
+                      memory_budget_mb=budget)
+        eng.upsert(np.arange(len(X)), X, attrs)
+        eng.build()
+        before = kmeans_assign.LAUNCHES
+        assert eng.maintain(force="rebuild") == "rebuild"
+        assert kmeans_assign.LAUNCHES > before
+        got = eng.query(X[:8], Q.knn(k=1, n_probe=8)).to_numpy()[0]
+        assert list(got[:, 0]) == list(range(8))
+        eng.close()

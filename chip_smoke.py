@@ -24,6 +24,20 @@ Phases (any failure exits non-zero and prints no result line):
                  pre-filter plan (K1 over the gathered rows; recall@100 =
                  1.000 against a filtered brute force), a broad one to the
                  post-filter plan (program route == mask route).
+     serving  -- (inside main, after hybrid, before the writes) the front
+                 door on the resident engine: 32 threads x 16 single-row
+                 callers, every answer equal to its solo query() bit for
+                 bit, int8 and f32, with the rates of both; explain() on
+                 the int8, f32, exact, pre- and post-filter routes (stages,
+                 span sums, scan launches == launch delta); the tracing
+                 hooks' cost on untraced Q=1 (median ratio <= 1.03); a
+                 flight capture of 256 front-door queries replayed bit for
+                 bit; a 40,000-query batch equal to its two launch slices
+                 and an oversize k_scan refused by name; the maintenance
+                 daemon beside 8 write sessions with HTTP scrapes that
+                 change no answer. Its paged half (front door, explain()
+                 with the fault span == stats(), flight replay) runs at
+                 the end of the paged phase on the int8 pool.
      maintenance -- (inside main, after the writes, before recover) the
                  monitor's verdict and work queue on the 1M engine, then
                  maintain(until_idle=True, max_steps=S), each step timed by
@@ -1018,6 +1032,8 @@ def main_path():
     main_counts = ops.launch_counts()
     out["hybrid"] = hybrid_phase(eng, queries, attrs, Xg, x2, qg, v2_max,
                                  pf_ids)
+    out["serving"] = serving_phase(eng, dict(X=X, queries=queries, Xg=Xg,
+                                             x2=x2))
     ops.reset_launch_counts()
 
     # -- writes: upserts visible at once, a delete gone at once --------------
@@ -1189,6 +1205,386 @@ def hybrid_phase(eng, queries, attrs, Xg, x2, qg, v2_max, pf_ids):
                post_mask_route_Q32_ms=ms_m, launches=counts,
                seconds=time.perf_counter() - t0)
     log(f"phase hybrid: {out['seconds']:.2f} s")
+    return out
+
+
+# nvidia-smi's name and power limit of the card, printed beside every
+# serving number (set by run())
+CARD = ""
+SERVE_THREADS, SERVE_PER = 32, 16       # 512 single-row callers
+PAGED_SERVE_PER = 4   # paged: 32 x 4 (a Q=32 paged batch is SQLite-bound)
+FLIGHT_PER = 8        # 32 x 8 = 256 captured front-door queries
+C1_QUERIES = 40_000   # above the 32,768 a K1 / K2 launch takes
+OFF_PAIRS, OFF_PER = 20, 100
+
+
+def scan_launches():
+    from repro_torch.kernels import ops
+    c = ops.launch_counts()
+    return c["ivf_scan_topk"] + c["sq_scan_topk"]
+
+
+def serve_load(eng, qs, spec, n_threads, per, **fd_kw):
+    """`n_threads` caller threads, released together at a barrier, each
+    submit `per` single-row queries through one FrontDoor and wait for
+    each answer -> (answers in query order as numpy pairs, seconds, the
+    front door's stats())."""
+    import threading
+    from repro_torch.serving import FrontDoor
+    out = [None] * (n_threads * per)
+    errs = []
+    gate = threading.Barrier(n_threads + 1)
+    with FrontDoor(eng, **fd_kw) as fd:
+        def caller(t):
+            gate.wait()
+            try:
+                for j in range(per):
+                    i = t * per + j
+                    out[i] = fd.query(qs[i], spec, timeout=600).to_numpy()
+            except BaseException as e:  # noqa: BLE001 -- checked below
+                errs.append(e)
+        ths = [threading.Thread(target=caller, args=(t,))
+               for t in range(n_threads)]
+        for th in ths:
+            th.start()
+        gate.wait()
+        t0 = time.perf_counter()
+        for th in ths:
+            th.join()
+        dt = time.perf_counter() - t0
+        st = fd.stats()
+    check(not errs, f"front-door callers failed: {errs[:1]}")
+    return out, dt, st
+
+
+def serve_compare(label, eng, qs, spec, n_threads, per):
+    """The same single-row queries solo on one thread, then through the
+    front door from `n_threads` threads (window 2 ms, max_batch_rows
+    512): every answer equal to its solo one bit for bit; both rates."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo = [eng.query(q, spec).to_numpy() for q in qs]
+    dt_solo = time.perf_counter() - t0
+    got, dt, st = serve_load(eng, qs, spec, n_threads, per, window_s=0.002,
+                             max_batch_rows=512)
+    same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+               for a, b in zip(got, solo))
+    n = len(qs)
+    log(f"serving {label}: {n_threads} threads x {per} single-row queries "
+        f"through the front door: {n / dt:.1f} queries/s ({dt:.3f} s); "
+        f"batches {st['batches']}, coalesced {st['coalesced']}, solo "
+        f"{st['solo']}, occupancy {st['batch_occupancy']:.2f}; queue wait "
+        f"p50 {st['queue_wait_p50_ms']:.3f} / p99 "
+        f"{st['queue_wait_p99_ms']:.3f} ms, total p50 "
+        f"{st['total_p50_ms']:.3f} / p99 {st['total_p99_ms']:.3f} ms; the "
+        f"same {n} queries solo on one thread: {n / dt_solo:.1f} queries/s "
+        f"({dt_solo:.3f} s); coalesced == solo bit for bit: {same} [{CARD}]")
+    check(same, f"serving {label}: a coalesced answer differs from its "
+          f"solo query()")
+    return dict(qps=n / dt, solo_qps=n / dt_solo, seconds=dt,
+                solo_seconds=dt_solo, stats=st)
+
+
+def check_trace(label, eng, q, spec, stages, paged=False):
+    """explain() on one route: the reference's stages in order, span times
+    summing to at most total_ms, the scan span's launches equal to the
+    K1 / K2 launch delta, and (paged) the fault span equal to the stats()
+    deltas."""
+    s0 = eng.stats() if paged else None
+    l0 = scan_launches()
+    tr = eng.explain(q, spec)
+    l1 = scan_launches()
+    check(tr.span_names == stages,
+          f"trace {label}: stages {tr.span_names}, expected {stages}")
+    span_ms = sum(s.dur_ms for s in tr.spans.values())
+    check(span_ms <= tr.total_ms,
+          f"trace {label}: spans {span_ms:.3f} ms > total {tr.total_ms:.3f}")
+    check(tr.counter("scan", "launches") == l1 - l0,
+          f"trace {label}: scan launches {tr.counter('scan', 'launches')} "
+          f"!= launch delta {l1 - l0}")
+    extra = ""
+    if paged:
+        s1 = eng.stats()
+        for key in ("hits", "misses", "bytes_read"):
+            check(tr.counter("pager_fault", key) == s1[key] - s0[key],
+                  f"trace {label}: pager_fault {key} differs from stats()")
+        extra = (f", fault hits {tr.counter('pager_fault', 'hits')} misses "
+                 f"{tr.counter('pager_fault', 'misses')} bytes_read "
+                 f"{tr.counter('pager_fault', 'bytes_read')} (== stats())")
+    spans = ", ".join(f"{s.name} {s.dur_ms:.3f}" for s in tr.spans.values())
+    log(f"trace {label} Q={tr.n_queries}: {spans} ms; total "
+        f"{tr.total_ms:.3f} ms; scan launches {l1 - l0} (== launch delta)"
+        f"{extra} [{CARD}]")
+    return dict(total_ms=tr.total_ms, spans={s.name: s.dur_ms for s in
+                                             tr.spans.values()},
+                launches=l1 - l0)
+
+
+def tracing_off_cost(eng, queries):
+    """OFF_PAIRS pairs of windows of OFF_PER untraced Q=1 int8 queries, one
+    window under trace.set_enabled(True) and one under False, the order
+    alternating: the median of the pair ratios (on / off) must be at most
+    1.03."""
+    import torch
+    from repro_torch.core.query import Q as QB
+    from repro_torch.obs import trace as obs_trace
+    spec = QB.knn(k=100, n_probe=8)
+    qs = [queries[i % len(queries)][None] for i in range(OFF_PER)]
+
+    def window(on):
+        obs_trace.set_enabled(on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for q in qs:
+            eng.query(q, spec).to_numpy()
+        return (time.perf_counter() - t0) * 1e3 / OFF_PER
+    ratios, on_ms, off_ms = [], [], []
+    try:
+        window(True)
+        window(False)
+        for p in range(OFF_PAIRS):
+            if p % 2 == 0:
+                a = window(True)
+                b = window(False)
+            else:
+                b = window(False)
+                a = window(True)
+            on_ms.append(a)
+            off_ms.append(b)
+            ratios.append(a / b)
+    finally:
+        obs_trace.set_enabled(True)
+    qr = quartiles(ratios)
+    log(f"tracing off: {OFF_PAIRS} pairs of {OFF_PER} untraced int8 Q=1 "
+        f"queries; per query enabled {fmt_q(quartiles(on_ms))}, disabled "
+        f"{fmt_q(quartiles(off_ms))}; ratio enabled / disabled median "
+        f"{qr[1]:.4f} (quartiles {qr[0]:.4f} / {qr[2]:.4f}) [{CARD}]")
+    check(qr[1] <= 1.03, f"tracing hooks cost {qr[1]:.4f}x on untraced "
+          f"queries (bound 1.03)")
+    return dict(ratio_quartiles=qr, on_ms=quartiles(on_ms),
+                off_ms=quartiles(off_ms))
+
+
+def flight_check(label, eng, qs, spec, per):
+    """Capture 32 x `per` front-door queries with the flight recorder,
+    then replay() the file on the same engine: a bit-identical report."""
+    from repro_torch.obs import recorder as obs_recorder
+    path = WORK / f"flight-{label}.db"
+    _rm_db(path)
+    with obs_recorder.recording(str(path)) as rec:
+        serve_load(eng, qs, spec, SERVE_THREADS, per, window_s=0.002,
+                   max_batch_rows=512)
+        n_rec = rec.recorded
+    t0 = time.perf_counter()
+    rep = obs_recorder.replay(str(path), engine=eng)
+    dt = time.perf_counter() - t0
+    log(f"flight {label}: {n_rec} records captured ({len(qs)} front-door "
+        f"admissions + solo-run engine queries), replayed {rep.replayed} "
+        f"in {dt:.2f} s: matched {rep.matched}, self-checked "
+        f"{rep.self_checked}, mismatches {len(rep.mismatches)} [{CARD}]")
+    check(rep.ok and rep.replayed == n_rec and rep.self_checked == len(qs),
+          f"flight {label}: replay diverged ({rep.to_dict()})")
+    return dict(records=n_rec, replayed=rep.replayed, seconds=dt)
+
+
+def c1_check(eng, ctx):
+    """C1: one ANN batch of C1_QUERIES queries (bucket 65,536, above the
+    65,535 grid rows of a launch) equals the concatenation of its
+    32,768 + rest runs bit for bit; its recall@100; and a spec whose
+    k_scan exceeds MAX_SCAN_K is refused by name."""
+    import numpy as np
+    import torch
+    from repro_torch.core import executor
+    from repro_torch.core.query import Q as QB
+    from repro_torch.kernels import common
+    rng = np.random.default_rng(11)
+    base = ctx["queries"]
+    q = (base[rng.integers(0, len(base), C1_QUERIES)]
+         + rng.normal(size=(C1_QUERIES, base.shape[1]))).astype(np.float32)
+    spec = QB.knn(k=100, n_probe=8)
+    cut = common.MAX_QUERIES_PER_LAUNCH
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = eng.query(q, spec).to_numpy()
+    dt = time.perf_counter() - t0
+    head = eng.query(q[:cut], spec).to_numpy()
+    tail = eng.query(q[cut:], spec).to_numpy()
+    same = all(np.array_equal(w, np.concatenate([h, t]))
+               for w, h, t in zip(whole, head, tail))
+    gt = oracle_topk(ctx["Xg"], ctx["x2"], torch.from_numpy(q).cuda(), 100)
+    r = recall(whole[0], gt.cpu().numpy())
+    torch.cuda.empty_cache()
+    log(f"C1: Q={C1_QUERIES} int8 ANN in {dt * 1e3:.1f} ms, equal to its "
+        f"{cut} + {C1_QUERIES - cut} slices bit for bit: {same}; "
+        f"recall@100 {r:.4f} [{CARD}]")
+    check(same, "the 40,000-query batch differs from its two slices")
+    k_big = executor.MAX_SCAN_K // eng.config.rerank_factor + 1
+    try:
+        eng.query(q[:2], QB.knn(k=k_big, n_probe=8))
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    log(f"C1: k={k_big} on the int8 tier refused: {refused!r}")
+    check("exceeds MAX_SCAN_K" in refused,
+          "an oversize k_scan was not refused by name")
+    return dict(ms=dt * 1e3, recall=r)
+
+
+def daemon_writes_http(eng, ctx):
+    """The front door with the maintenance daemon while a writer upserts
+    64 rows in 8 sessions: each write visible to the next front-door
+    query; /healthz, /metrics, /traces and /events scraped in 3 rounds
+    during the load, each round's answers equal to the same queries'
+    answers without a scrape (taken under the engine's write mutex, which
+    holds the daemon and the writer still and which neither queries nor
+    scrapes take). The rows are deleted afterwards."""
+    import threading
+    import urllib.request
+    import numpy as np
+    from repro_torch.core.query import Q as QB
+    from repro_torch.obs.http import ExpositionServer
+    from repro_torch.serving import FrontDoor
+    n, d = ctx["X"].shape
+    rng = np.random.default_rng(7)
+    new_ids = np.arange(n + 1000, n + 1064, dtype=np.int64)
+    new_vecs = (rng.normal(size=(64, d)) * 4 - 40).astype(np.float32)
+    knn10 = QB.knn(k=10, n_probe=8)
+    knn = QB.knn(k=100, n_probe=8)
+    q32 = ctx["queries"][:32]
+    steps0 = eng.scheduler.daemon_steps
+    srv = ExpositionServer.for_target(eng).start()
+    rounds = []
+    t0 = time.perf_counter()
+    try:
+        with FrontDoor(eng, window_s=0.002, max_batch_rows=512,
+                       maintenance=True) as fd:
+            for s in range(8):
+                lo = 8 * s
+                with eng.session() as w:
+                    w.upsert(new_ids[lo:lo + 8], new_vecs[lo:lo + 8],
+                             np.zeros((8, 2), np.float32))
+                rs = fd.query(new_vecs[lo:lo + 8], knn10,
+                              timeout=600).to_numpy()
+                check((rs[0][:, 0] == new_ids[lo:lo + 8]).all(),
+                      f"session {s}: a write is not visible to the next "
+                      f"query")
+                if s not in (1, 4, 7):
+                    continue
+                pages = {}
+
+                def scrape():
+                    for path in ("/healthz", "/metrics", "/traces",
+                                 "/events"):
+                        with urllib.request.urlopen(srv.url + path,
+                                                    timeout=120) as r:
+                            pages[path] = (r.status, len(r.read()))
+                with eng.lock:
+                    quiet = fd.query(q32, knn, timeout=600).to_numpy()
+                    th = threading.Thread(target=scrape)
+                    th.start()
+                    during = fd.query(q32, knn, timeout=600).to_numpy()
+                    th.join(300)
+                check(len(pages) == 4 and all(c == 200 and b > 0 for c, b
+                                              in pages.values()),
+                      f"scrape round {len(rounds)}: {pages}")
+                same = all(np.array_equal(a, b)
+                           for a, b in zip(quiet, during))
+                check(same, "answers taken during a scrape differ")
+                rounds.append(pages)
+            st = fd.stats()
+    finally:
+        srv.stop()
+    dt = time.perf_counter() - t0
+    steps = eng.scheduler.daemon_steps - steps0
+    check(eng.scheduler.daemon_errors == 0,
+          f"daemon error: {eng.scheduler.last_daemon_error!r}")
+    eng.delete(new_ids)
+    log(f"daemon + writes + HTTP: 8 sessions of 8 upserts each visible to "
+        f"the next query; {steps} daemon quanta in {dt:.2f} s; 3 scrape "
+        f"rounds of /healthz /metrics /traces /events (bytes "
+        f"{[{p: b for p, (_, b) in r.items()} for r in rounds]}), answers "
+        f"during each equal to those without; front door batches "
+        f"{st['batches']}, solo {st['solo']} [{CARD}]")
+    return dict(seconds=dt, daemon_steps=steps, scrape_rounds=len(rounds))
+
+
+def serving_phase(eng, ctx):
+    """The serving layer on the resident 1M int8 engine (after the hybrid
+    checks, before the writes): the front door (512 single-row callers on
+    32 threads, coalesced == solo bit for bit) on both tiers, explain() on
+    every resident route, the cost of the tracing hooks on untraced Q=1,
+    a flight-recorder capture replayed bit for bit, C1 (a 40,000-query
+    batch, MAX_SCAN_K), then the daemon + writes + HTTP scrapes."""
+    from repro_torch.core.hybrid import Pred
+    from repro_torch.core.query import Q as QB
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    queries = ctx["queries"]
+    n = SERVE_THREADS * SERVE_PER
+    knn = QB.knn(k=100, n_probe=8)
+    out = {"int8": serve_compare("resident int8", eng, queries[:n], knn,
+                                 SERVE_THREADS, SERVE_PER),
+           "f32": serve_compare("resident f32", eng, queries[:n],
+                                knn.quantized(False), SERVE_THREADS,
+                                SERVE_PER)}
+    q4 = queries[:4]
+    ann = ("plan", "probe", "scan", "merge")
+    ann_sq = ("plan", "probe", "scan", "rerank", "merge")
+    out["traces"] = {
+        "int8": check_trace("resident int8", eng, q4, knn, ann_sq),
+        "f32": check_trace("resident f32", eng, q4, knn.quantized(False),
+                           ann),
+        "exact": check_trace("exact", eng, q4, QB.exact(k=100), ann),
+        "prefilter": check_trace("pre-filter (auto)", eng, q4,
+                                 knn.where(Pred(1, "<", 0.0005)), ann),
+        "postfilter": check_trace("post-filter", eng, q4,
+                                  knn.where(Pred(0, "==", 3)).postfilter(),
+                                  ann_sq)}
+    out["tracing_off"] = tracing_off_cost(eng, queries)
+    out["flight"] = flight_check("resident", eng,
+                                 queries[:SERVE_THREADS * FLIGHT_PER], knn,
+                                 FLIGHT_PER)
+    out["c1"] = c1_check(eng, ctx)
+    out["daemon_http"] = daemon_writes_http(eng, ctx)
+    counts = ops.launch_counts()
+    log(f"launches on the serving path: {counts}")
+    for name in ("ivf_scan_topk", "sq_scan_topk"):
+        check(counts[name] > 0, f"{name} was not launched on the serving "
+              f"path")
+    out.update(launches=counts, seconds=time.perf_counter() - t_phase)
+    log(f"phase serving: {out['seconds']:.1f} s")
+    return out
+
+
+def paged_serving(pag, ctx):
+    """The paged half of the serving phase, on the 10 MiB int8 pool: the
+    front door (32 threads x PAGED_SERVE_PER callers; coalesced == solo
+    bit for bit), explain() with the fault span reconciled against
+    stats(), and a flight capture replayed bit for bit."""
+    from repro_torch.core.query import Q as QB
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    queries = ctx["queries"]
+    knn = QB.knn(k=100, n_probe=8)
+    n = SERVE_THREADS * PAGED_SERVE_PER
+    out = {"int8": serve_compare("paged int8", pag, queries[:n], knn,
+                                 SERVE_THREADS, PAGED_SERVE_PER)}
+    out["trace"] = check_trace(
+        "paged int8", pag, queries[100:104], knn,
+        ("plan", "probe", "pager_fault", "scan", "rerank", "merge"),
+        paged=True)
+    out["flight"] = flight_check("paged", pag, queries[:n], knn,
+                                 PAGED_SERVE_PER)
+    counts = ops.launch_counts()
+    log(f"launches on the paged serving path: {counts}")
+    check(counts["sq_scan_topk"] > 0,
+          "sq_scan_topk was not launched on the paged serving path")
+    out.update(launches=counts, seconds=time.perf_counter() - t0)
+    log(f"phase paged serving: {out['seconds']:.1f} s")
     return out
 
 
@@ -1512,7 +1908,9 @@ def paged_phase(ctx):
     for name in ("ivf_scan_topk", "sq_scan_topk"):
         check(counts[name] > 0, f"{name} was not launched on the paged path")
     out.update(exact_Q8_ms=ms, exact_recall=r_ex, ann_recall_same_q=r_ann,
-               launches=counts, seconds=time.perf_counter() - t_phase)
+               launches=counts)
+    out["serving"] = paged_serving(pag, ctx)
+    out["seconds"] = time.perf_counter() - t_phase
     log(f"phase paged: {out['seconds']:.1f} s")
     return out, pools
 
@@ -1990,7 +2388,9 @@ def kernels_only():
 
 
 def run(args):
+    global CARD
     name, count, card = device_info()
+    CARD = card
     t_all = time.perf_counter()
     build_kernels()
     if args.quick:
@@ -2019,8 +2419,10 @@ def run(args):
     shutil.rmtree(WORK, ignore_errors=True)
     by_path = {"main": out["launches"],
                "hybrid": out["hybrid"]["launches"],
+               "serving": out["serving"]["launches"],
                "maintenance": out["maintenance"]["launches"],
                "paged": out["paged"]["launches"],
+               "paged_serving": out["paged"]["serving"]["launches"],
                "paged_build": out["paged_build"]["launches"],
                "paged_rebuild": out["rebuild"]["paged"]["launches"],
                "resident_rebuild": out["rebuild"]["resident"]["launches"]}

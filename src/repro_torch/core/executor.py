@@ -40,27 +40,77 @@ Differences from the JAX package, each deliberate:
     ascending) -- the order lax.top_k gives -- so partitions are scanned,
     and score ties broken, in the same order as the reference;
   * a pre-filter spec without a cap raises ValueError (the reference
-    asserts).
+    asserts);
+  * a spec whose scan keeps more than MAX_SCAN_K candidates per query
+    raises ValueError on both devices (the reference has no bound; see
+    MAX_SCAN_K);
+  * there is no jit, so nothing compiles per spec: `run_count()` counts
+    fused scan calls (one per run / run_coalesced / paged_search), and a
+    traced scan span carries the K1/K2 `launches` it made and the kernel
+    libraries it loaded (`compiled`, build.load_count()) where the
+    reference counts jit traces.
+
+Tracing (obs/trace.py): with a trace active on the calling thread, `run`
+records the probe, scan, rerank and merge spans (resident: rerank and
+merge run inside the scan call and are timed within its span, `fused=1`,
+as in the reference), and `paged_search` its probe, per-chunk scan,
+rerank and merge spans beside the pager's fault spans. A traced call
+synchronises the device at span boundaries, so a span times the work and
+not its launch; an untraced call never does.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from ..kernels import ops
+from ..kernels import build, ops
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from . import quantize
 from .hybrid import compile_filter
 from .query import QuerySpec, ResultSet
 from .topk import dedup_by_id, mask_scores, merge_topk, topk_smallest
 from .types import (INVALID_ID, MASKED_SCORE, IVFIndex, PagedIndex,
-                    SearchResult, f32_matmul, normalize_if_cosine,
-                    normalize_rows, pairwise_scores, to_device)
+                    SearchResult, normalize_if_cosine,
+                    normalize_rows, pairwise_scores, pairwise_sum,
+                    row_matmul, to_device)
 
 # attr_filter: [..., n_attr] float32 -> [...] bool (hybrid.compile_filter)
 AttrFilter = Callable[[torch.Tensor], torch.Tensor]
+
+# Most candidates one scan keeps per query (its k_out). Pass 2 of K1 / K2
+# merges a query's lists in shared memory: 3 * k_out 8-byte keys plus two
+# ints per chunk (csrc/topk_common.cuh, pass2_smem_bytes). H100 gives a
+# block at most 227 KB = 232,448 bytes, and a scan has at most 2 * 132 = 264
+# chunks, so k_out <= (232,448 - 2 * 264 * 4) / 24 = 9,597; 9,216 = 9 * 1024
+# leaves a margin (pass 1 then takes at most ~190 KB at d = 960). A spec
+# needing more raises ValueError on every device, before any planning.
+MAX_SCAN_K = 9216
+
+# Fused scan calls so far: one per run() (run_coalesced included) and per
+# paged_search(); the port's counterpart of the reference's jit trace count.
+_RUN_COUNT = 0
+
+
+def run_count() -> int:
+    """Fused scan calls made in this process (run / run_coalesced /
+    paged_search, one each)."""
+    return _RUN_COUNT
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device's queued work (traced calls only)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _scan_launches() -> int:
+    c = ops.launch_counts()
+    return c["ivf_scan_topk"] + c["sq_scan_topk"]
 
 
 def _own_backend(index) -> str:
@@ -269,8 +319,10 @@ def fused_sq_scan(queries, codes, qstats, valid, part_ids, k_out: int, *,
 
 def _delta_candidates_from(delta, metric: str, q: torch.Tensor,
                            attr_filter: Optional[AttrFilter]):
-    """The delta partition, always scanned (§3.6), in rank convention."""
-    dots = f32_matmul(q, delta.vectors.T)                   # [Q, cap]
+    """The delta partition, always scanned (§3.6), in rank convention. The
+    products run in fixed-shape row blocks (row_matmul), so a query's delta
+    scores do not depend on its batch."""
+    dots = row_matmul(q, delta.vectors.T)                   # [Q, cap]
     if metric in ("ip", "cosine"):
         scores = -dots
     else:
@@ -296,20 +348,30 @@ def _merge_epilogue(delta, metric: str, q, s, i, k: int, k_scan: int,
     s, i = dedup_by_id(s, i)
     if metric == "l2":
         # restore full squared distances (the scan drops ||q||^2)
-        q2 = torch.sum(q * q, dim=-1, keepdim=True)
+        q2 = pairwise_sum(q * q)[:, None]
         s = torch.where(i == INVALID_ID, torch.full_like(s, MASKED_SCORE),
                         s + q2)
     return s, i
 
 
+# Elements of the [Q, c, d] products one rescore step forms (1 GiB of
+# float32): larger batches are rescored in slices of queries.
+_RESCORE_ELEMS = 1 << 28
+
+
 def _rescore_exact(q, v, got, ids, k_out: int, metric: str):
-    """Exact float32 rescore of gathered candidate rows [Q, c, d]."""
-    dots = torch.einsum("qd,qcd->qc", q, v)
-    if metric in ("ip", "cosine"):
-        s = -dots
-    else:
-        s = torch.sum(v * v, dim=-1) - 2.0 * dots
-    s = mask_scores(s, got)
+    """Exact float32 rescore of gathered candidate rows [Q, c, d]. The dot
+    products and norms are summed by pairwise_sum, so a candidate's score
+    has the same bits in any batch (a batched library product picks its
+    kernel, and its order, by the batch's shape)."""
+    step = max(1, _RESCORE_ELEMS // max(1, v.shape[1] * v.shape[2]))
+    parts = []
+    for a in range(0, q.shape[0], step):
+        va = v[a:a + step]
+        dots = pairwise_sum(q[a:a + step, None, :] * va)
+        parts.append(-dots if metric in ("ip", "cosine")
+                     else pairwise_sum(va * va) - 2.0 * dots)
+    s = mask_scores(torch.cat(parts) if len(parts) > 1 else parts[0], got)
     ids = torch.where(got, ids, torch.full_like(ids, INVALID_ID))
     return topk_smallest(s, ids, k_out)
 
@@ -520,7 +582,9 @@ def run(index, queries, spec: QuerySpec, *,
     the result), as in the JAX package, so a stream of batch sizes meets
     few distinct shapes (what a captured CUDA graph per shape would need).
     A PagedIndex streams the plan through its frame pool (paged_search)."""
+    global _RUN_COUNT
     _check_backend(index, spec.on_backend)
+    check_scan_k(index, spec)
     if isinstance(index, PagedIndex):
         if spec.predicate is not None and spec.hybrid == "pre":
             raise ValueError(
@@ -543,10 +607,92 @@ def run(index, queries, spec: QuerySpec, *,
         q = torch.cat([q, torch.zeros((b - Q, q.shape[1]), dtype=q.dtype,
                                       device=dev)])
     qmask = torch.arange(b, device=dev) < Q
-    res = _run_spec(index, q, qmask, spec)
+    _RUN_COUNT += 1
+    tr = obs_trace.current()
+    if tr is None:
+        res = _run_spec(index, q, qmask, spec)
+    else:
+        _record_resident_probe(tr, index, q[:Q], spec)
+        l0, c0 = _scan_launches(), build.load_count()
+        t0 = time.perf_counter()
+        res = _run_spec(index, q, qmask, spec)
+        _sync(dev)
+        _record_resident_scan(tr, index, spec, b,
+                              (time.perf_counter() - t0) * 1e3,
+                              _scan_launches() - l0, build.load_count() - c0)
     if b != Q:
         res = SearchResult(ids=res.ids[:Q], scores=res.scores[:Q])
     return ResultSet.of(res, spec)
+
+
+def check_scan_k(index, spec: QuerySpec) -> None:
+    """Refuse, by name, a spec whose scan keeps more than MAX_SCAN_K
+    candidates per query (k * rerank_factor on the int8 tier, else k)
+    before any cut to the probed rows: K1 / K2's pass 2 would not fit the
+    card's shared memory. Checked on every device, so both behave
+    alike."""
+    if isinstance(index, PagedIndex):
+        use_sq = index.cache.payload == "int8"
+    else:
+        quantized = spec.use_quantized
+        if quantized is None:
+            quantized = index.codes is not None
+        use_sq = bool(quantized) and spec.kind == "ann" and not (
+            spec.predicate is not None and spec.hybrid == "pre")
+    k_scan = max(spec.k, spec.k * index.config.rerank_factor) if use_sq \
+        else spec.k
+    if k_scan > MAX_SCAN_K:
+        raise ValueError(f"QuerySpec k={spec.k}: the scan's k_scan={k_scan} "
+                         f"exceeds MAX_SCAN_K={MAX_SCAN_K}")
+
+
+def _record_resident_probe(tr, index: IVFIndex, q: torch.Tensor,
+                           spec: QuerySpec) -> None:
+    """Probe span of a traced resident query. The probe runs inside the
+    scan call, so the span re-derives it from the same centroids with the
+    same op (find_nearest_centroids) -- extra work on traced queries only."""
+    kp = index.k
+    if spec.kind == "exact":
+        tr.record(obs_trace.STAGE_PROBE, 0.0, partitions=int(kp),
+                  n_probe=int(kp), kind="exact")
+        return
+    if spec.predicate is not None and spec.hybrid == "pre":
+        tr.record(obs_trace.STAGE_PROBE, 0.0, partitions=0,
+                  rows_cap=int(spec.cap or 0), kind="prefilter")
+        return
+    t0 = time.perf_counter()
+    qn = normalize_if_cosine(q.to(torch.float32), index.config.metric)
+    parts = torch.unique(find_nearest_centroids(index, qn, spec.n_probe))
+    tr.record(obs_trace.STAGE_PROBE, (time.perf_counter() - t0) * 1e3,
+              partitions=int(parts.numel()),
+              n_probe=int(min(spec.n_probe, kp)), kind="ann")
+
+
+def _record_resident_scan(tr, index: IVFIndex, spec: QuerySpec, b: int,
+                          dt_ms: float, launches: int,
+                          compiled: int) -> None:
+    """Scan / rerank / merge spans of a traced resident query: the scan
+    call covers all three, so rerank and merge are markers (fused=1) whose
+    time is in the scan span."""
+    kp, p_max = index.k, index.p_max
+    quantized = spec.use_quantized
+    if quantized is None:
+        quantized = index.codes is not None
+    use_sq = bool(quantized) and spec.kind == "ann" and \
+        spec.hybrid != "pre"
+    n_parts = tr.counter(obs_trace.STAGE_PROBE, "partitions",
+                         default=int(kp))
+    tr.record(obs_trace.STAGE_SCAN, dt_ms,
+              partitions=n_parts, rows=n_parts * p_max, chunks=1,
+              backend=_backend(index, spec), q_bucket=b, quantized=use_sq,
+              launches=launches, compiled=compiled,
+              cache_hit=(compiled == 0), fused=1)
+    if use_sq:
+        rf = index.config.rerank_factor
+        tr.record(obs_trace.STAGE_RERANK, 0.0, fused=1, rf=int(rf),
+                  candidates=b * min(max(spec.k, spec.k * rf),
+                                     n_parts * p_max))
+    tr.record(obs_trace.STAGE_MERGE, 0.0, fused=1)
 
 
 def run_coalesced(index: IVFIndex, chunks, spec: QuerySpec):
@@ -565,6 +711,30 @@ def run_coalesced(index: IVFIndex, chunks, spec: QuerySpec):
     return run(index, torch.cat(qs, dim=0), spec).split(sizes)
 
 
+def search(index, queries, *, k: int, kind: str = "ann", n_probe: int = 8,
+           u_max: Optional[int] = None, cap: Optional[int] = None,
+           attr_filter: Optional[AttrFilter] = None,
+           backend: Optional[str] = None, quantized: Optional[bool] = None,
+           bucket: bool = True) -> ResultSet:
+    """Kwarg shim over the QuerySpec entry point: builds the equivalent
+    spec (kind "ann" | "exact" | "prefilter") and routes through run(), so
+    equal kwargs and an equal hand-built spec take the same path."""
+    if kind not in ("ann", "exact", "prefilter"):
+        raise ValueError(f"kind must be 'ann', 'exact' or 'prefilter': "
+                         f"{kind!r}")
+    if kind == "prefilter" and (cap is None or attr_filter is None):
+        raise ValueError("kind='prefilter' needs a cap and an attr_filter")
+    pred = None if attr_filter is None else \
+        getattr(attr_filter, "predicate", attr_filter)
+    spec = QuerySpec(
+        kind="exact" if kind == "exact" else "ann", k=k, n_probe=n_probe,
+        u_max=u_max, cap=cap, predicate=pred,
+        hybrid="pre" if kind == "prefilter" else
+        ("post" if pred is not None else "auto"),
+        use_quantized=quantized, on_backend=backend)
+    return run(index, queries, spec, bucket=bucket)
+
+
 # ---------------------------------------------------------------------------
 # Paged execution: scan the memory-budgeted frame pool instead of a resident
 # tier; an int8 pool's rerank gathers float32 rows from the durable store.
@@ -577,12 +747,16 @@ def _rerank_from_store(store, q: torch.Tensor, cand_ids: torch.Tensor,
     rows' float32 vectors from SQLite (one batched IN (...) over the
     unique asset ids), normalised on the host by the op recover() uses for
     the resident tier, and rescore them with the same _rescore_exact."""
+    tr = obs_trace.current()
+    t0 = time.perf_counter() if tr is not None else 0.0
     cand = cand_ids.cpu().numpy()
     got = cand != INVALID_ID
     Q, kc = cand.shape
     v = np.zeros((Q, kc, store.dim), np.float32)
+    n_uniq = 0
     if got.any():
         uniq = np.unique(cand[got])
+        n_uniq = int(uniq.size)
         rows, found = store.vectors_for(uniq)
         rows = normalize_rows(rows, metric)
         idx = np.searchsorted(uniq, np.where(got, cand, uniq[0]))
@@ -590,8 +764,13 @@ def _rerank_from_store(store, q: torch.Tensor, cand_ids: torch.Tensor,
         got = got & (uniq[idx] == cand) & found[idx]
         v[got] = rows[idx[got]]
     dev = cand_ids.device
-    return _rescore_exact(q, to_device([v], dev)[0], to_device([got], dev)[0],
-                          cand_ids, k_out, metric)
+    out = _rescore_exact(q, to_device([v], dev)[0], to_device([got], dev)[0],
+                         cand_ids, k_out, metric)
+    if tr is not None:
+        _sync(dev)
+        tr.record(obs_trace.STAGE_RERANK, (time.perf_counter() - t0) * 1e3,
+                  candidates=Q * kc, rows_gathered=n_uniq, k_out=k_out)
+    return out
 
 
 def _paged_probes(pindex: PagedIndex, q: torch.Tensor, n_probe: int,
@@ -648,6 +827,8 @@ def paged_search(pindex: PagedIndex, queries, *, k: int, kind: str = "ann",
     resident scan tier never exceeds the budget, even for an exact scan.
     Predicates mask the frame scan (the pool carries attrs frames); an
     int8 pool's candidates are reranked from SQLite."""
+    global _RUN_COUNT
+    _RUN_COUNT += 1
     cfg = pindex.config
     cache = pindex.cache
     dev = pindex.device
@@ -670,6 +851,8 @@ def paged_search(pindex: PagedIndex, queries, *, k: int, kind: str = "ann",
     if attr_filter is not None and cache.attrs_pool is None:
         raise ValueError("a predicate needs an attribute-backed frame pool "
                          "(a store with n_attr > 0)")
+    tr = obs_trace.current()
+    t_probe = time.perf_counter() if tr is not None else 0.0
     if kind == "exact":
         upart = np.nonzero(pindex.counts > 0)[0].astype(np.int64)
         qsel = qmask[:, None].expand(b, len(upart))
@@ -678,6 +861,11 @@ def paged_search(pindex: PagedIndex, queries, *, k: int, kind: str = "ann",
     else:
         raise ValueError(f"kind must be 'ann' or 'exact': {kind!r}")
     n = len(upart)
+    if tr is not None:
+        _sync(dev)
+        tr.record(obs_trace.STAGE_PROBE,
+                  (time.perf_counter() - t_probe) * 1e3,
+                  partitions=int(n), n_probe=int(n_probe), kind=kind)
     p_max = cache.p_max
     if use_sq:
         k_run = min(max(k, k * cfg.rerank_factor), max(n * p_max, 1))
@@ -713,6 +901,10 @@ def paged_search(pindex: PagedIndex, queries, *, k: int, kind: str = "ann",
                                                 cache.attrs_pool)
                 cq = qsel[:, s:s + chunk]
                 k_chunk = min(k_run, len(cpids) * p_max)
+                if tr is not None:
+                    _sync(dev)
+                    t_scan = time.perf_counter()
+                    l0, c0 = _scan_launches(), build.load_count()
                 if use_sq:
                     cs, ci = fused_sq_scan(
                         q, cache.payload_pool, pindex.qstats,
@@ -724,6 +916,17 @@ def paged_search(pindex: PagedIndex, queries, *, k: int, kind: str = "ann",
                         q, cache.payload_pool, cache.valid_pool,
                         cache.ids_pool, fidx, k_chunk, metric=cfg.metric,
                         qsel=cq, keep=keep, attrs=attrs, program=prog)
+                if tr is not None:
+                    _sync(dev)
+                    compiled = build.load_count() - c0
+                    tr.record(obs_trace.STAGE_SCAN,
+                              (time.perf_counter() - t_scan) * 1e3,
+                              chunks=1, partitions=len(cpids),
+                              rows=len(cpids) * p_max,
+                              backend=_own_backend(pindex),
+                              quantized=use_sq, q_bucket=b,
+                              launches=_scan_launches() - l0,
+                              compiled=compiled, cache_hit=compiled == 0)
             finally:
                 # the scan is enqueued on the stream every later fault
                 # write into these frames uses, so unpinning here is safe
@@ -747,8 +950,20 @@ def paged_search(pindex: PagedIndex, queries, *, k: int, kind: str = "ann",
         k_scan = 0
         s_m = torch.zeros((b, 0), dtype=torch.float32, device=dev)
         i_m = torch.zeros((b, 0), dtype=torch.int32, device=dev)
+    t_merge = time.perf_counter() if tr is not None else 0.0
     s_f, i_f = _merge_epilogue(pindex.delta, cfg.metric, q, s_m, i_m, k,
                                k_scan, attr_filter, qmask=qmask)
+    if tr is not None:
+        _sync(dev)
+        tr.record(obs_trace.STAGE_MERGE, (time.perf_counter() - t_merge) * 1e3,
+                  k=int(k), k_scan=int(k_scan), fused=0)
     if b != Q:
         s_f, i_f = s_f[:Q], i_f[:Q]
     return ResultSet(ids=i_f, scores=s_f, spec=spec)
+
+
+# the executor's instruments in the process registry, beside the pager's,
+# the front door's and the scheduler's
+_OBS = obs_metrics.default_registry().scope(component="executor")
+_OBS.gauge("run_count", fn=run_count)
+_OBS.gauge("kernel_loads", fn=build.load_count)

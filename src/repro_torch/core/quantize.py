@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .types import (QuantStats, f32_matmul, normalize_if_cosine,
+from .types import (QuantStats, normalize_if_cosine, pairwise_sum,
                     resolve_device)
 
 # Number of representable levels: codes span [-128, 127] <-> [0, 255].
@@ -103,9 +103,11 @@ def fold_queries(stats: QuantStats, q: torch.Tensor
     alpha2 = a2 / 127.0
     q_i8 = torch.cat([q1, q2], dim=0)
     alpha = torch.cat([alpha1, alpha2], dim=0)
+    # integer sums below 2^24 are exact in any order; q . lo is summed by
+    # pairwise_sum, so a query's beta has the same bits in any batch
     beta = 128.0 * (alpha1 * torch.sum(q1.to(torch.float32), dim=-1)
                     + alpha2 * torch.sum(q2.to(torch.float32), dim=-1)) \
-        + f32_matmul(q, stats.lo)
+        + pairwise_sum(q * stats.lo[None, :])
     return q_i8, alpha, beta
 
 
@@ -114,24 +116,18 @@ def row_norms(stats: QuantStats, codes: torch.Tensor) -> torch.Tensor:
     per-row constant (IVFIndex.code_norms, and the paged int8 pool's norms
     frames).
 
-    The squares are summed in one fixed pairwise order with elementwise
-    adds only (zero-padded to a power of two; adding 0.0 is exact), so a
-    row's norm has the same bits whatever batch it is computed in and on
-    either device: the pager computes it per faulted frame, the resident
-    engine over the whole index, and the two scans must rank alike."""
+    The squares are summed by types.pairwise_sum, so a row's norm has the
+    same bits whatever batch it is computed in and on either device: the
+    pager computes it per faulted frame, the resident engine over the
+    whole index, and the two scans must rank alike."""
     d = codes.shape[-1]
     lead = codes.shape[:-1]
     flat = codes.reshape(-1, d)
     out = torch.empty((flat.shape[0],), dtype=torch.float32,
                       device=codes.device)
-    width = 1 << max(0, (d - 1).bit_length())
     for s in range(0, flat.shape[0], _NORM_CHUNK_ROWS):
         v = decode(stats, flat[s:s + _NORM_CHUNK_ROWS])
-        sq = torch.nn.functional.pad(v * v, (0, width - d))
-        while sq.shape[-1] > 1:
-            h = sq.shape[-1] // 2
-            sq = sq[:, :h] + sq[:, h:]
-        out[s:s + _NORM_CHUNK_ROWS] = sq[:, 0]
+        out[s:s + _NORM_CHUNK_ROWS] = pairwise_sum(v * v)
     return out.reshape(lead)
 
 

@@ -173,6 +173,10 @@ class ResultSet:
     scores: torch.Tensor                # [Q, k] float32
     spec: Optional[QuerySpec] = None
     attrs: Optional[np.ndarray] = None  # [Q, k, n_attr] if gathered
+    # obs.trace.QueryTrace when the query ran traced (query(trace=True),
+    # explain(), a traced front-door submit); None untraced
+    trace: Optional[Any] = dataclasses.field(
+        default=None, repr=False, compare=False)
     _np: Optional[Tuple[np.ndarray, np.ndarray]] = dataclasses.field(
         default=None, repr=False, compare=False)
 

@@ -22,6 +22,15 @@ def topk_smallest(scores: torch.Tensor, ids: torch.Tensor, k: int):
     return s, i
 
 
+def running_topk_init(batch_shape, k: int, device=None):
+    """An empty running top-k buffer: (MASKED_SCORE, INVALID_ID) entries of
+    shape batch_shape + (k,)."""
+    shape = tuple(batch_shape) + (k,)
+    return (torch.full(shape, MASKED_SCORE, dtype=torch.float32,
+                       device=device),
+            torch.full(shape, INVALID_ID, dtype=torch.int32, device=device))
+
+
 def merge_topk(s_a, i_a, s_b, i_b, k: int):
     """Associative merge of two (scores, ids) top-k buffers -> top-k of union."""
     return topk_smallest(torch.cat([s_a, s_b], dim=-1),

@@ -223,9 +223,45 @@ def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed pairwise order, with elementwise
+    adds only (zero-padded to a power of two; adding 0.0 is exact). A
+    library reduction picks its order by the tensor's shape, so a row's sum
+    could change with the batch it rides in; this one gives a row the same
+    bits in any batch, on either device (coalesced == solo)."""
+    d = x.shape[-1]
+    width = 1 << max(0, (d - 1).bit_length())
+    if width != d:
+        x = torch.nn.functional.pad(x, (0, width - d))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+# rows of one block of row_matmul
+ROW_BLOCK = 32
+
+
+def row_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[M, k] @ [k, n] as products of fixed-shape blocks of ROW_BLOCK rows
+    of `a` (the last block zero-padded): every block has one shape, so the
+    library runs one kernel whatever M is, and a row's products have the
+    same bits in any batch."""
+    m = a.shape[0]
+    pad = -m % ROW_BLOCK
+    if pad:
+        a = torch.cat([a, a.new_zeros((pad, a.shape[1]))])
+    out = torch.cat([f32_matmul(a[s:s + ROW_BLOCK], b)
+                     for s in range(0, m + pad, ROW_BLOCK)])
+    return out[:m]
+
+
 def normalize_if_cosine(x: torch.Tensor, metric: str) -> torch.Tensor:
+    """L2-normalise rows for the cosine metric (the norm by pairwise_sum,
+    so a row's bits do not depend on its batch)."""
     if metric == "cosine":
-        n = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        n = torch.sqrt(pairwise_sum(x * x))[..., None]
         return x / torch.clamp(n, min=1e-12)
     return x
 

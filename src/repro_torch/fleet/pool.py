@@ -37,8 +37,12 @@ does not hand a buffer out again before its copy has finished) and
 `index_copy_`-ed into the victim frames on the device's current stream.
 Scans run on the same stream, so a write into a frame is ordered after
 every scan enqueued before it, and a pinned frame is never a victim.
-Counters are plain attributes of the views and of this pool; their
-metrics-registry hooks wait for the port of obs/*.
+The tenants' hit / miss / eviction / byte counters live in the metrics
+registry (each view's `component=pager` scope); a fault leaves its own
+breakdown in the view's `_last_fault` for the active trace's fault span.
+Evictions are charged to (victim, evictor) pairs in a host matrix and in
+`evictions_attributed` registry counters under this pool's
+`component=frame_pool` scope, both bounded.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 
 from ..core.types import INVALID_ID, resolve_device, to_device
+from ..obs import metrics as obs_metrics
 
 _PAYLOAD_DTYPE = {"f32": torch.float32, "int8": torch.int8}
 
@@ -91,7 +96,10 @@ class FramePool:
         # bounded at attr_max_pairs distinct pairs (overflow counted apart)
         self.attr_max_pairs = 4096
         self._evict_pairs: Dict[Tuple[int, int], int] = {}
+        self._evict_pair_counters: Dict[Tuple[int, int], object] = {}
         self._evict_overflow = 0
+        self._metrics = obs_metrics.default_registry().scope(
+            component="frame_pool", inst=obs_metrics.next_instance())
         self._alloc(p_max)
 
     # -- registration --------------------------------------------------------
@@ -207,12 +215,25 @@ class FramePool:
             return self._t_resident.get(tid, 0)
 
     def _note_eviction(self, victim_tid: int, evictor_tid: int):
+        """Charge one CLOCK eviction to (victim, evictor), with the pool
+        lock held, on the fault's miss path only. The matrix folds pairs
+        past `attr_max_pairs` into one overflow count; the registry's
+        per-name series guard bounds the counters."""
         key = (victim_tid, evictor_tid)
         n = self._evict_pairs.get(key)
         if n is None and len(self._evict_pairs) >= self.attr_max_pairs:
             self._evict_overflow += 1
             return
         self._evict_pairs[key] = 1 if n is None else n + 1
+        c = self._evict_pair_counters.get(key)
+        if c is None:
+            c = self._metrics.counter(
+                "evictions_attributed",
+                victim=self._name_by_tid.get(victim_tid, str(victim_tid)),
+                evictor=self._name_by_tid.get(evictor_tid,
+                                              str(evictor_tid)))
+            self._evict_pair_counters[key] = c
+        c.inc()
 
     def eviction_matrix(self) -> Dict[str, Dict[str, int]]:
         """victim name -> {evictor name -> evictions}."""
@@ -309,8 +330,9 @@ class FramePool:
             return
         payload, ids, valid, attrs = view._fetch_blocks(want)
         with self._lock:
-            view.bytes_staged += payload.nbytes + ids.nbytes + valid.nbytes \
-                + (0 if attrs is None else attrs.nbytes)
+            view._c_bytes_staged.inc(
+                payload.nbytes + ids.nbytes + valid.nbytes
+                + (0 if attrs is None else attrs.nbytes))
             if gen != self._stage_gen:
                 return          # a writer invalidated mid-fetch: drop all
             # bound leftovers (a scan that raised never consumes its chunk)
@@ -357,8 +379,10 @@ class FramePool:
                 hit_frames.append(f)
             else:
                 missing.append((j, p))
-        view.hits += len(hit_frames)
+        if hit_frames:
+            view._c_hits.inc(len(hit_frames))
         if not missing:
+            view._last_fault = (len(hit_frames), 0, 0, 0)
             return frames
         new_frames = []
         n_evicted = 0
@@ -382,18 +406,23 @@ class FramePool:
             new_frames.append(f)
         # counted before the fetch: a failed fetch still paid the miss (and
         # already evicted its victims)
-        view.misses += len(missing)
-        view.evictions += n_evicted
+        view._c_misses.inc(len(missing))
+        if n_evicted:
+            view._c_evictions.inc(n_evicted)
+        n_bytes = 0
         try:
             # staged read-ahead first; the rest in one SQL round-trip
             staged = {p: self._staged.pop((tid, p))
                       for _, p in missing if (tid, p) in self._staged}
-            view.staged_consumed += len(staged)
+            n_staged = len(staged)
+            if n_staged:
+                view._c_staged_consumed.inc(n_staged)
             fetch = [p for _, p in missing if p not in staged]
             if fetch:
                 f_pay, f_ids, f_val, f_att = view._fetch_blocks(fetch)
-                view.bytes_read += f_pay.nbytes + f_ids.nbytes \
-                    + f_val.nbytes + (0 if f_att is None else f_att.nbytes)
+                n_bytes = f_pay.nbytes + f_ids.nbytes + f_val.nbytes \
+                    + (0 if f_att is None else f_att.nbytes)
+                view._c_bytes_read.inc(n_bytes)
                 for i, p in enumerate(fetch):
                     staged[p] = (f_pay[i], f_ids[i], f_val[i],
                                  None if f_att is None else f_att[i])
@@ -415,6 +444,8 @@ class FramePool:
                 self._pins[f] -= 1
                 self._t_pins[tid] -= 1
             raise
+        view._last_fault = (len(hit_frames), len(missing), n_staged,
+                            n_bytes)
         return frames
 
     def _write_frames(self, view, frames: List[int], entries: List[tuple]):

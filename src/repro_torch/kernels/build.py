@@ -42,6 +42,9 @@ SIGNATURES = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# kernel libraries loaded into this process (each at most once); a traced
+# scan reports the loads it caused as its `compiled` count
+_LOADS = 0
 # nvcc's stderr (the -Xptxas -v register / shared-memory report) per build
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -111,6 +114,7 @@ def build_all(names=KERNELS) -> Dict[str, float]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
+    global _LOADS
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -123,7 +127,13 @@ def load(name: str) -> ctypes.CDLL:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     _LIBS[name] = lib
+    _LOADS += 1
     return lib
+
+
+def load_count() -> int:
+    """Kernel libraries loaded (built if needed) in this process so far."""
+    return _LOADS
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -65,6 +65,20 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+# Most queries one K1 / K2 launch takes: pass 1's grid is (n_chunks, n_q)
+# and its y dimension stops at 65535, so the wrappers cut larger batches
+# into slices of this many queries. A query's result does not depend on
+# the batch it rides in, so the slices concatenate to the same bits.
+MAX_QUERIES_PER_LAUNCH = 32768
+
+
+def query_slices(n_q: int):
+    """[(start, stop)] cutting n_q queries into launches of at most
+    MAX_QUERIES_PER_LAUNCH (one slice when n_q fits)."""
+    m = MAX_QUERIES_PER_LAUNCH
+    return [(s, min(s + m, n_q)) for s in range(0, max(n_q, 1), m)]
+
+
 def scan_plan(n_q: int, n: int, p_max: int, sms: int, group: int = 1) -> int:
     """n_chunks for both scans (ivf_scan.cu, sq_scan.cu): each query's
     selected probe positions (all n without a selection) are shared out
@@ -74,7 +88,8 @@ def scan_plan(n_q: int, n: int, p_max: int, sms: int, group: int = 1) -> int:
     lists. The shared memory a k_out needs is checked by the launch itself,
     which reports an oversize request as its error."""
     if n_q > 65535:
-        raise ValueError("a scan takes at most 65535 queries per call")
+        # the wrappers slice at MAX_QUERIES_PER_LAUNCH: a guard only
+        raise ValueError("a scan takes at most 65535 queries per launch")
     if n * p_max >= 2 ** 31:
         raise ValueError("probe list too long: n * p_max must stay below "
                          "2^31 positions")

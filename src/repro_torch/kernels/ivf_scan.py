@@ -5,7 +5,8 @@ repro/kernels/ivf_scan.py::ivf_scan_topk.
 `ivf_scan_topk` runs the plain PyTorch version (`ivf_scan_plain`, from
 kernels/ref.py) when its tensors lie on the CPU, and launches the kernel
 when they lie on a CUDA device -- there is no fallback from one to the
-other. `LAUNCHES` counts kernel launches, and only those.
+other. `LAUNCHES` counts kernel launches, and only those; a batch of more
+than common.MAX_QUERIES_PER_LAUNCH queries runs as one launch per slice.
 """
 from __future__ import annotations
 
@@ -46,8 +47,15 @@ def ivf_scan_topk(
         return ivf_scan_plain(queries, vectors, valid, ids, part_ids, k_out,
                               metric=metric, qsel=qsel, keep=keep,
                               attrs=attrs, program=program)
-    return _launch(queries, vectors, valid, ids, part_ids, k_out, metric,
-                   qsel, keep, attrs, program)
+    n_q = queries.shape[0]
+    parts = [_launch(queries[a:b], vectors, valid, ids, part_ids, k_out,
+                     metric, None if qsel is None else qsel[a:b], keep,
+                     attrs, program)
+             for a, b in common.query_slices(n_q)]
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
 
 
 def query_group(n_q: int, qsel) -> int:

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from . import ivf_scan as _ivf
 from . import kmeans_assign as _km
 from . import sq_scan as _sq
@@ -49,6 +51,18 @@ def assign_nearest(batch, centroids, counts, *, balance_weight: float = 0.0,
     return _km.kmeans_assign(batch, centroids, counts,
                              balance_weight=balance_weight,
                              target_size=target_size, scale=scale)
+
+
+def index_scan_topk(index, queries, k_out: int, n_probe: int):
+    """Kernel-backed Alg. 2 over an IVFIndex, no delta and no filters (the
+    executor integrates those): every query's n_probe nearest partitions,
+    flattened in query order -- duplicates included, as in the reference --
+    form one shared probe list that K1 scans for every query."""
+    from ..core.executor import find_nearest_centroids
+    parts = find_nearest_centroids(index, queries, n_probe)
+    return scan_topk(queries, index.vectors, index.valid, index.ids,
+                     parts.reshape(-1).to(torch.int32), k_out,
+                     metric=index.config.metric)
 
 
 def launch_counts() -> Dict[str, int]:

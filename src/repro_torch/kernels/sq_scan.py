@@ -7,7 +7,8 @@ The wrapper folds the float32 queries into the stacked two-term int8 form
 Pallas wrapper does; the kernel and its plain version (`sq_scan_plain`)
 both take the folded inputs. CPU tensors run the plain version, CUDA
 tensors launch the kernel -- no fallback either way. `LAUNCHES` counts
-kernel launches, and only those.
+kernel launches, and only those; a batch of more than
+common.MAX_QUERIES_PER_LAUNCH queries runs as one launch per slice.
 """
 from __future__ import annotations
 
@@ -60,8 +61,23 @@ def sq_scan_folded(q_i8, alpha, beta, lo, scale, codes, valid, ids, part_ids,
                              part_ids, k_out, metric=metric, qsel=qsel,
                              keep=keep, norms=norms, attrs=attrs,
                              program=program)
-    return _launch(q_i8, alpha, beta, lo, scale, codes, valid, ids, part_ids,
-                   k_out, metric, qsel, keep, norms, attrs, program)
+    n_q = beta.shape[0]
+    slices = common.query_slices(n_q)
+    if len(slices) == 1:
+        return _launch(q_i8, alpha, beta, lo, scale, codes, valid, ids,
+                       part_ids, k_out, metric, qsel, keep, norms, attrs,
+                       program)
+    # the folded queries stack both terms: rows [0, n_q) and [n_q, 2 n_q)
+    q2 = q_i8.reshape(2, n_q, q_i8.shape[1])
+    a2 = alpha.reshape(2, n_q)
+    parts = [_launch(q2[:, a:b].reshape(2 * (b - a), -1),
+                     a2[:, a:b].reshape(-1), beta[a:b], lo, scale, codes,
+                     valid, ids, part_ids, k_out, metric,
+                     None if qsel is None else qsel[a:b], keep, norms,
+                     attrs, program)
+             for a, b in slices]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
 
 
 def _launch(q_i8, alpha, beta, lo, scale, codes, valid, ids, part_ids,

@@ -38,14 +38,22 @@ signals into a prioritised work queue that the scheduler
 durable as codes first, then one SQLite repair transaction; both modes
 leave identical durable states after the same steps. `maintain()` with no
 argument acts on the monitor's single verdict, `force="rebuild"`
-re-clusters everything (through the kmeans_assign kernel). Not ported yet
-(ROADMAP Queue A): tracing and the flight recorder.
+re-clusters everything (through the kmeans_assign kernel).
+
+Observability (obs/*): the engine owns a labeled scope of the process
+metrics registry (`self.metrics`; the pager, scheduler and front door
+register under it) and a TraceRing (`self.traces`: the last traced
+queries, the maintenance event log and the slow-query log).
+`query(..., trace=True)` and `explain()` record a per-stage QueryTrace;
+`stats()` is a derived view of the registry. The flight recorder
+(obs/recorder.py) captures `query()` calls while one is installed.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import threading
+import time
 import warnings
 from typing import List, Optional, Tuple
 
@@ -61,10 +69,18 @@ from ..core.query import Q, QuerySpec, ResultSet
 from ..core.types import (INVALID_ID, DeltaStore, IVFConfig, PagedIndex,
                           normalize_if_cosine, normalize_rows,
                           resolve_device)
-from ..kernels import ops
+from ..kernels import build, ops
+from ..obs import metrics as obs_metrics
+from ..obs import recorder as obs_recorder
+from ..obs import trace as obs_trace
 from . import pager
 from .scheduler import MaintenanceScheduler, StepReport
 from .store import VectorStore
+
+
+def _n_rows(queries) -> int:
+    """Query rows of a [q, d] batch or a single [d] vector."""
+    return int(queries.shape[0]) if len(queries.shape) == 2 else 1
 
 
 def _locked(fn):
@@ -140,6 +156,8 @@ class MicroNN:
                  device=None,
                  memory_budget_mb: Optional[float] = None,
                  max_rows_per_step: int = 4096,
+                 trace_ring_capacity: int = 256,
+                 slow_query_ms: float = 100.0,
                  frame_pool=None,
                  tenant: Optional[str] = None):
         """`quantize="int8"` turns on the scalar-quantized tier: searches
@@ -159,7 +177,11 @@ class MicroNN:
 
         `monitor` sets the maintenance triggers (core/monitor.py);
         `max_rows_per_step` bounds one maintenance quantum: one
-        `maintain_step()` touches at most that many rows."""
+        `maintain_step()` touches at most that many rows.
+
+        `trace_ring_capacity` sizes the ring of recent traces and
+        maintenance events (`self.traces`); traced queries at or above
+        `slow_query_ms` are also kept in its slow-query log."""
         if memory_budget_mb is not None and not memory_budget_mb > 0:
             raise ValueError(f"memory_budget_mb must be > 0: "
                              f"{memory_budget_mb}")
@@ -183,8 +205,24 @@ class MicroNN:
         self.index = None   # IVFIndex (resident) or PagedIndex (paged)
         self.optimizer: Optional[HybridOptimizer] = None
         self.maintenance_log = []
+        # this engine's labeled view of the process metrics registry; a
+        # fleet tenant's scope is labeled by name, so a reopened tenant
+        # resumes its series
+        if self.tenant is not None:
+            self.metrics = obs_metrics.default_registry().scope(
+                component="engine", tenant=self.tenant)
+        else:
+            self.metrics = obs_metrics.default_registry().scope(
+                component="engine", inst=str(obs_metrics.next_instance()))
+        self.traces = obs_trace.TraceRing(capacity=trace_ring_capacity,
+                                          slow_ms=slow_query_ms)
+        self._c_queries = self.metrics.counter("queries")
         self.scheduler = MaintenanceScheduler(
-            self, max_rows_per_step=max_rows_per_step)
+            self, max_rows_per_step=max_rows_per_step,
+            metrics=self.metrics.scope(component="scheduler"))
+        # the serving front door attached to this engine, if any
+        # (serving/frontdoor.py sets it; stats() reports its counters)
+        self._frontdoor = None
 
     @property
     def paged(self) -> bool:
@@ -593,6 +631,9 @@ class MicroNN:
         # centroid rewrites
         old_pid = self.store.partitions_for(plan.row_ids)
         movedm = old_pid != plan.assign
+        if self.paged:
+            self._fit_frames(max((plan.assign == p).sum()
+                                 for p in plan.pids))
         self.store.apply_repair(
             plan.row_ids[movedm], plan.assign[movedm], plan.pids,
             plan.centroids, plan.csizes)
@@ -616,8 +657,8 @@ class MicroNN:
     def _apply_repair_paged(self, plan):
         """Paged apply: the durable tier is the scan tier, so the repair is
         already in place -- update the resident metadata (centroids,
-        csizes, counts, drift), invalidate exactly the touched frames, and
-        grow the frame geometry when a partition outgrew p_max."""
+        csizes, counts, drift) and invalidate exactly the touched frames
+        (_apply_repair grew the frame geometry before the durable write)."""
         idx = self.index
         k = idx.k
         k_new = max(k, plan.k_after)
@@ -641,22 +682,66 @@ class MicroNN:
         idx.counts = counts
         idx.drift = drift
         idx.cache.invalidate([int(p) for p in plan.pids])
+
+    def _fit_frames(self, rows: int):
+        """Paged mode: grow the frame geometry so a partition of `rows`
+        rows fits. Called before the durable write that makes a partition
+        that large, so a concurrent reader's fault (through the snapshot
+        connection) never meets a partition larger than a frame."""
+        cache = self.index.cache
         pad = self.config.pad_to
-        new_p_max = max(idx.cache.p_max,
-                        -(-int(max(sizes.max(), 1)) // pad) * pad)
-        if new_p_max > idx.cache.p_max:
-            idx.cache.resize(new_p_max)
+        need = -(-int(max(rows, 1)) // pad) * pad
+        if need > cache.p_max:
+            cache.resize(need)
 
     # -- queries --------------------------------------------------------------
-    def query(self, queries: np.ndarray,
-              spec: Optional[QuerySpec] = None) -> ResultSet:
+    def query(self, queries: np.ndarray, spec: Optional[QuerySpec] = None,
+              *, trace: bool = False) -> ResultSet:
         """THE query entry point: execute a declarative QuerySpec against
-        a snapshot of the index (reads never take the write mutex)."""
+        a snapshot of the index (reads never take the write mutex).
+
+        `trace=True` records a per-query QueryTrace: every layer the query
+        crosses (planner, probe, pager, scan, rerank, merge) adds its span,
+        the trace enters the engine's ring (`self.traces`) and rides back
+        on `result.trace`. Untraced, no span is allocated -- unless an
+        outer trace is active on this thread (the front door's shared
+        fused-call trace), which the layers then record into."""
+        if trace and obs_trace.enabled():
+            res = self._query_traced(queries, spec)
+        else:
+            res = self._query_inner(queries, spec)
+        # recording off costs this one global load and branch
+        rec = obs_recorder._ACTIVE
+        if rec is not None:
+            rec.record(obs_recorder.SITE_ENGINE, self.tenant, queries, spec,
+                       result=res)
+        return res
+
+    def _query_traced(self, queries, spec: Optional[QuerySpec]) -> ResultSet:
+        tr = obs_trace.QueryTrace(mode="paged" if self.paged else "resident")
+        with obs_trace.activate(tr):
+            res = self._query_inner(queries, spec)
+        tr.finish()
+        tr.result = res
+        res.trace = tr
+        self.traces.append(tr)
+        return res
+
+    def explain(self, queries: np.ndarray,
+                spec: Optional[QuerySpec] = None) -> obs_trace.QueryTrace:
+        """Execute the query traced and return its QueryTrace (the result
+        rides on `trace.result`): the per-stage wall time and work counters
+        of this spec on this engine."""
+        return self.query(queries, spec, trace=True).trace
+
+    def _query_inner(self, queries, spec: Optional[QuerySpec]) -> ResultSet:
         idx, optimizer = self.index, self.optimizer
         if idx is None:
             raise RuntimeError("build() or recover() first")
-        spec = self._resolve_spec(idx, optimizer,
-                                  QuerySpec() if spec is None else spec)
+        self._c_queries.inc()
+        spec = self._resolve_spec_traced(
+            idx, optimizer, QuerySpec() if spec is None else spec,
+            _n_rows(queries))
         res = executor.run(idx, queries, spec)
         if spec.gather_attrs and self.store.n_attr:
             res.attrs = self._gather_attrs(res.to_numpy()[0])
@@ -670,15 +755,33 @@ class MicroNN:
         idx, optimizer = self.index, self.optimizer
         if idx is None:
             raise RuntimeError("build() or recover() first")
+        self._c_queries.inc(len(chunks))
         # the optimizer's rewrite depends on the spec and the stats only,
         # so one resolution serves every chunk
-        spec = self._resolve_spec(idx, optimizer,
-                                  QuerySpec() if spec is None else spec)
+        spec = self._resolve_spec_traced(
+            idx, optimizer, QuerySpec() if spec is None else spec,
+            sum(_n_rows(c) for c in chunks))
         results = executor.run_coalesced(idx, chunks, spec)
         if spec.gather_attrs and self.store.n_attr:
             for rs in results:
                 rs.attrs = self._gather_attrs(rs.to_numpy()[0])
         return results
+
+    def _resolve_spec_traced(self, idx, optimizer, spec: QuerySpec,
+                             n_queries: int) -> QuerySpec:
+        """_resolve_spec with the trace's `plan` span (the hybrid decision
+        and the resolved shape) when a trace is active."""
+        tr = obs_trace.current()
+        if tr is None:
+            return self._resolve_spec(idx, optimizer, spec)
+        t0 = time.perf_counter()
+        spec = self._resolve_spec(idx, optimizer, spec)
+        tr.record(obs_trace.STAGE_PLAN, (time.perf_counter() - t0) * 1e3,
+                  kind=spec.kind, k=int(spec.k), n_probe=int(spec.n_probe),
+                  hybrid=spec.hybrid, predicate=spec.predicate is not None)
+        tr.spec = spec
+        tr.n_queries += n_queries
+        return spec
 
     def _resolve_spec(self, idx, optimizer: Optional[HybridOptimizer],
                       spec: QuerySpec) -> QuerySpec:
@@ -727,20 +830,30 @@ class MicroNN:
 
     # -- observability --------------------------------------------------------
     def stats(self) -> dict:
-        """Operational counters with the reference's keys in both modes:
-        pager hits/misses/evictions (zero in resident mode), resident
-        scan-tier bytes (resident: the f32 tier + codes; paged: the frame
-        pool, at most the budget), the maintenance scheduler's queue depth,
-        daemon state and counters, plus the kernel launch counts of this
-        process."""
+        """Operational counters with the reference's keys in both modes,
+        each a derived view of the metrics registry: pager hits/misses/
+        evictions (zero in resident mode), resident scan-tier bytes
+        (resident: the f32 tier + codes; paged: the frame pool, at most
+        the budget), the maintenance scheduler's queue depth, daemon state
+        and counters, and `frontdoor`, the attached front door's counters
+        (zeroed without one). In place of the reference's jit keys
+        (`trace_count`, `compile_cache_size`) the port reports `run_count`
+        (fused scan calls) and `kernel_loads` (kernel libraries loaded),
+        plus the kernel launch counts of this process."""
+        from ..serving import frontdoor as frontdoor_mod
         sched = self.scheduler
+        fd = self._frontdoor
         out = {"paged": self.paged, "hits": 0, "misses": 0, "evictions": 0,
                "resident_bytes": 0, "budget_bytes": None,
                "device": str(self.device),
+               "run_count": executor.run_count(),
+               "kernel_loads": build.load_count(),
                "scheduler_depth": sched.queue_depth(),
                "daemon_alive": sched.daemon_alive,
                "daemon_steps": sched.daemon_steps,
                "scheduler": sched.stats(),
+               "frontdoor": fd.stats() if fd is not None
+               else frontdoor_mod.empty_stats(),
                "launches": ops.launch_counts()}
         idx = self.index
         if idx is None:
@@ -810,18 +923,15 @@ class MicroNN:
         pad = cfg.pad_to
         p_max = int(max(counts.max() if len(counts) else 0, 1))
         p_max = max(pad, -(-p_max // pad) * pad)
-        old = self.index.cache if isinstance(self.index, PagedIndex) \
-            else None
+        # the pager's counters live under this engine's scope, so they stay
+        # cumulative across rebuilds (get-or-create returns the same ones)
         cache = pager.PartitionCache(
             self.store, p_max=p_max,
             budget_bytes=int(self.memory_budget_mb * 2 ** 20),
             payload=payload, metric=cfg.metric, qstats=qstats,
-            with_attrs=self.store.n_attr > 0, pool=self._frame_pool,
-            tenant=self.tenant, device=self.device)
-        if old is not None:     # counters are cumulative across rebuilds
-            for name in ("hits", "misses", "evictions", "bytes_read",
-                         "bytes_staged", "staged_consumed"):
-                setattr(cache, name, getattr(old, name))
+            with_attrs=self.store.n_attr > 0,
+            metrics=self.metrics.scope(component="pager"),
+            pool=self._frame_pool, tenant=self.tenant, device=self.device)
         nonempty = counts[counts > 0]
         self.index = PagedIndex(
             centroids=torch.as_tensor(np.asarray(cents, np.float32),
@@ -926,19 +1036,16 @@ class MicroNN:
                 idx.drift = np.zeros((idx.k,), np.float32)
             maintenance.running_mean_update(cent, csz, dx, assign, touched,
                                             drift=idx.drift)
+            counts = idx.counts + np.bincount(assign, minlength=idx.k)
+            self._fit_frames(int(counts.max()))
             # row moves + the touched centroids in one transaction
             self.store.apply_repair(dids, assign, touched, cent[touched],
                                     csz[touched])
             idx.cache.invalidate(touched)
-            idx.counts = idx.counts + np.bincount(assign, minlength=idx.k)
+            idx.counts = counts
             idx.centroids = torch.as_tensor(cent, device=self.device)
             idx.csizes = torch.as_tensor(csz, device=self.device)
             self._persist_maintenance_state()
-            pad = self.config.pad_to
-            new_p_max = max(idx.cache.p_max,
-                            -(-int(idx.counts.max()) // pad) * pad)
-            if new_p_max > idx.cache.p_max:   # a partition outgrew a frame
-                idx.cache.resize(new_p_max)
             stats = maintenance.MaintenanceStats(
                 kind="incremental", rows_moved=int(live.size),
                 partitions_touched=int(len(touched)),

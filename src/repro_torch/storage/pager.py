@@ -24,10 +24,14 @@ Invalidation contract: any write that changes a partition's durable rows
 invalidate(pids); the next fault re-reads the partition. A rebuild
 attaches a new view, whose registration drops the tenant's frames.
 Counters (hits, misses, evictions, bytes read and staged) are cumulative
-plain attributes surfaced by MicroNN.stats().
+metrics-registry counters under the engine's `component=pager` scope, so a
+re-attached view (a paged rebuild) keeps its series; MicroNN.stats() reads
+them. With a trace active, every fault records the `pager_fault` span,
+whose counters equal the registry deltas of the call.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -36,6 +40,11 @@ import torch
 from ..core import quantize
 from ..core.types import normalize_rows
 from ..fleet.pool import FramePool
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+
+_COUNTERS = ("hits", "misses", "evictions", "bytes_read", "bytes_staged",
+             "staged_consumed")
 
 
 class PartitionCache:
@@ -47,7 +56,8 @@ class PartitionCache:
 
     def __init__(self, store, *, p_max: int, budget_bytes: int,
                  payload: str = "f32", metric: str = "l2", qstats=None,
-                 with_attrs: bool = False, pool: Optional[FramePool] = None,
+                 with_attrs: bool = False, metrics=None,
+                 pool: Optional[FramePool] = None,
                  tenant: Optional[str] = None, device=None):
         if payload not in ("f32", "int8"):
             raise ValueError(f"payload must be 'f32' or 'int8': {payload!r}")
@@ -58,13 +68,19 @@ class PartitionCache:
         self.payload = payload
         self.qstats = qstats
         self.with_attrs = bool(with_attrs and store.n_attr)
-        # cumulative counters (the pool bumps them under its lock)
-        self.hits = 0
-        self.misses = 0
-        self.evictions = 0
-        self.bytes_read = 0
-        self.bytes_staged = 0
-        self.staged_consumed = 0
+        # cumulative counters (the pool bumps them under its lock). The
+        # engine passes its own scope, so a re-attached view gets the same
+        # counter objects back; a standalone cache starts at zero under a
+        # fresh instance label.
+        if metrics is None:
+            metrics = obs_metrics.default_registry().scope(
+                component="pager", inst=str(obs_metrics.next_instance()))
+        self._metrics = metrics
+        for name in _COUNTERS:
+            setattr(self, f"_c_{name}", metrics.counter(name))
+        # the last fault's (hits, misses, staged frames consumed, bytes
+        # read), for the active trace's fault span
+        self._last_fault = (0, 0, 0, 0)
         self._private_pool = pool is None
         if pool is None:
             pool = FramePool(
@@ -79,6 +95,31 @@ class PartitionCache:
         self._pool = pool
         self.tenant = str(tenant)
         self._tid = pool.register(self, self.tenant, p_max=p_max)
+
+    # -- cumulative counters (registry-backed; plain ints out) ---------------
+    @property
+    def hits(self) -> int:
+        return self._c_hits.value
+
+    @property
+    def misses(self) -> int:
+        return self._c_misses.value
+
+    @property
+    def evictions(self) -> int:
+        return self._c_evictions.value
+
+    @property
+    def bytes_read(self) -> int:
+        return self._c_bytes_read.value
+
+    @property
+    def bytes_staged(self) -> int:
+        return self._c_bytes_staged.value
+
+    @property
+    def staged_consumed(self) -> int:
+        return self._c_staged_consumed.value
 
     # -- pool geometry (delegated) -------------------------------------------
     @property
@@ -215,8 +256,23 @@ class PartitionCache:
         """Seat every listed partition; returns the frame per pid (input
         order), each PINNED -- the caller unpins after its scan. `admit=
         False` marks a one-off stream (paged exact): misses land in the
-        scan ring and hits leave reference bits alone."""
-        return self._pool.fault(self._tid, pids, admit)
+        scan ring and hits leave reference bits alone. With a trace active
+        the fault records the `pager_fault` span (its counters read under
+        the pool lock, so they are this fault's alone) and waits for the frame
+        writes, so the span times them."""
+        tr = obs_trace.current()
+        if tr is None:
+            return self._pool.fault(self._tid, pids, admit)
+        t0 = time.perf_counter()
+        with self._pool._lock:
+            frames = self._pool.fault(self._tid, pids, admit)
+            h, m, st, nb = self._last_fault
+        if self._pool.device.type == "cuda":    # the frame writes are async
+            torch.cuda.synchronize(self._pool.device)
+        tr.record(obs_trace.STAGE_FAULT, (time.perf_counter() - t0) * 1e3,
+                  hits=h, misses=m, staged=st, bytes_read=nb,
+                  admitted=bool(admit))
+        return frames
 
     def unpin(self, frames: np.ndarray):
         self._pool.unpin(frames)

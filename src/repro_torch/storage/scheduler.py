@@ -22,17 +22,24 @@ the pre-repair clustering.
 Daemon mode: `start_daemon()` runs one quantum at a time on a background
 thread, under the engine's write mutex, whenever the `idle` probe says
 the foreground is idle -- and at least every `_BUSY_BACKOFF` polls when it
-is not, so maintenance is never starved for good.
+is not, so maintenance is never starved for good. Between quanta it leaves
+the mutex free for one poll interval, so writers are not starved either.
 
-Counters are plain attributes (`stats()`); the JAX package's metrics
-registry and trace ring (obs/*) are not ported yet, so no maintenance
-events are recorded.
+Telemetry: the counters live in the metrics registry (obs.metrics) under
+the engine's `component=scheduler` scope, read back by `stats()`; every
+planned item, executed quantum, no-op plan and swallowed daemon error is
+appended as a MaintEvent to the engine's trace ring (the maintenance event
+log).
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Callable, List, Optional, Tuple
+
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 
 
 @dataclasses.dataclass
@@ -61,21 +68,29 @@ class MaintenanceScheduler:
 
     ACTIONS = ("flush", "split", "merge", "repack", "recluster")
 
-    def __init__(self, engine, max_rows_per_step: int = 4096):
+    def __init__(self, engine, max_rows_per_step: int = 4096,
+                 metrics=None):
         if max_rows_per_step < 1:
             raise ValueError(f"max_rows_per_step must be >= 1: "
                              f"{max_rows_per_step}")
         self.engine = engine
         self.max_rows_per_step = int(max_rows_per_step)
-        # counters (plain attributes until the metrics registry is ported)
-        self.wakeups = 0
-        self.idle_probes = 0
-        self.busy_backoffs = 0
-        self.steps = 0
-        self.noops = 0
-        self.rows_moved = 0
-        self.bytes_written = 0
-        self.action_steps = {a: 0 for a in self.ACTIONS}
+        # the engine passes a sub-scope of its own labels; a standalone
+        # scheduler registers under a fresh instance label
+        if metrics is None:
+            metrics = obs_metrics.default_registry().scope(
+                component="scheduler",
+                inst=str(obs_metrics.next_instance()))
+        self.metrics = metrics
+        self._c_wakeups = metrics.counter("wakeups")
+        self._c_idle_probes = metrics.counter("idle_probes")
+        self._c_busy_backoffs = metrics.counter("busy_backoffs")
+        self._c_steps = metrics.counter("steps")
+        self._c_noops = metrics.counter("noops")
+        self._c_rows_moved = metrics.counter("rows_moved")
+        self._c_bytes_written = metrics.counter("bytes_written")
+        self._c_actions = {a: metrics.counter("action_steps", action=a)
+                           for a in self.ACTIONS}
         # (action, pids, rows) keys that planned to a no-op since the last
         # step that made progress
         self._skip: set = set()
@@ -98,6 +113,19 @@ class MaintenanceScheduler:
         """Number of pending maintenance work items."""
         return len(self.pending())
 
+    def _emit(self, kind: str, *, action: str = "", pids=(), rows: int = 0,
+              bytes_written: int = 0, dur_ms: float = 0.0, error: str = "",
+              daemon: bool = False):
+        """Append a MaintEvent to the engine's trace ring (the maintenance
+        event log); a no-op without a ring or with tracing disabled."""
+        ring = getattr(self.engine, "traces", None)
+        if ring is None or not obs_trace.enabled():
+            return
+        ring.append(obs_trace.MaintEvent(
+            kind=kind, action=action, pids=tuple(int(p) for p in pids),
+            rows=int(rows), bytes_written=int(bytes_written),
+            dur_ms=dur_ms, error=error, daemon=daemon))
+
     def step(self, *, daemon: bool = False) -> Optional[StepReport]:
         """Execute the highest-priority actionable work item; None when the
         queue is idle (or nothing actionable fits the quantum)."""
@@ -110,6 +138,9 @@ class MaintenanceScheduler:
                 # an indivisible neighbourhood larger than the quantum
                 self._skip.add(key)
                 continue
+            self._emit("planned", action=item.action, pids=item.pids,
+                       rows=item.rows, daemon=daemon)
+            t0 = time.perf_counter()
             if daemon:
                 # counted before the item commits: an observer that sees
                 # the post-step index also sees the step counted
@@ -124,25 +155,36 @@ class MaintenanceScheduler:
                 if daemon:
                     self.daemon_steps -= 1
                 self._skip.add(key)
-                self.noops += 1
+                self._c_noops.inc()
+                self._emit("noop", action=item.action, pids=item.pids,
+                           daemon=daemon)
                 continue
             self._skip.clear()      # progress: stale no-op keys expire
-            self.steps += 1
-            if report.action in self.action_steps:
-                self.action_steps[report.action] += 1
-            self.rows_moved += report.rows
-            self.bytes_written += report.bytes_written
+            self._c_steps.inc()
+            counter = self._c_actions.get(report.action)
+            if counter is not None:
+                counter.inc()
+            self._c_rows_moved.inc(report.rows)
+            self._c_bytes_written.inc(report.bytes_written)
+            self._emit("step", action=report.action, pids=report.pids,
+                       rows=report.rows, bytes_written=report.bytes_written,
+                       dur_ms=(time.perf_counter() - t0) * 1e3,
+                       daemon=daemon)
             return report
         return None
 
     def stats(self) -> dict:
-        """The scheduler's counters (MicroNN.stats()['scheduler'])."""
-        return {"wakeups": self.wakeups, "idle_probes": self.idle_probes,
-                "busy_backoffs": self.busy_backoffs, "steps": self.steps,
-                "noops": self.noops, "rows_moved": self.rows_moved,
-                "bytes_written": self.bytes_written,
+        """The scheduler's registry-backed counters
+        (MicroNN.stats()['scheduler'])."""
+        return {"wakeups": self._c_wakeups.value,
+                "idle_probes": self._c_idle_probes.value,
+                "busy_backoffs": self._c_busy_backoffs.value,
+                "steps": self._c_steps.value,
+                "noops": self._c_noops.value,
+                "rows_moved": self._c_rows_moved.value,
+                "bytes_written": self._c_bytes_written.value,
                 "daemon_errors": self.daemon_errors,
-                "actions": dict(self.action_steps)}
+                "actions": {a: c.value for a, c in self._c_actions.items()}}
 
     def drain(self, max_steps: Optional[int] = None) -> List[StepReport]:
         """Run steps until the queue is idle (maintain(until_idle=True)).
@@ -210,14 +252,14 @@ class MaintenanceScheduler:
         maintenance for good."""
         yielded = 0
         while not self._stop.is_set():
-            self.wakeups += 1
+            self._c_wakeups.inc()
             if self.engine.index is None:
                 self._sleep(self._interval_s * self._IDLE_BACKOFF)
                 continue
             busy = self._idle_fn is not None and not self._idle_fn()
             if busy and yielded < self._BUSY_BACKOFF:
                 yielded += 1
-                self.busy_backoffs += 1
+                self._c_busy_backoffs.inc()
                 self._sleep(self._interval_s)
                 continue
             yielded = 0
@@ -229,6 +271,12 @@ class MaintenanceScheduler:
             except BaseException as e:  # noqa: BLE001 -- the daemon lives on
                 self.daemon_errors += 1
                 self.last_daemon_error = e
+                self._emit("daemon_error", error=repr(e), daemon=True)
             if report is None:
-                self.idle_probes += 1
+                self._c_idle_probes.inc()
                 self._sleep(self._interval_s * self._IDLE_BACKOFF)
+            else:
+                # one poll interval without the mutex after every quantum:
+                # a writer waiting on it gets in (a lock handed straight
+                # back would starve it while the queue is long)
+                self._stop.wait(self._interval_s)

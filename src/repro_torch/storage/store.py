@@ -82,6 +82,13 @@ class VectorStore:
                                         check_same_thread=False)
 
     @property
+    def snapshot_reads(self) -> bool:
+        """True when reads run on the dedicated WAL snapshot connection
+        (a file-backed store): the precondition for serving queries beside
+        writers without the engine's write mutex (serving/frontdoor.py)."""
+        return self._rdb is not None
+
+    @property
     def read_db(self) -> sqlite3.Connection:
         """Connection for query-path reads: the WAL snapshot connection
         when available, else the write connection."""

@@ -322,6 +322,69 @@ def test_ivf_scan_kernel_solo_equals_batched_bitwise(cuda, route,
         assert torch.equal(got[1], whole[1]), (attr, value)
 
 
+@pytest.mark.parametrize("route", ["norms", "decode", "program"])
+def test_sq_scan_kernel_solo_equals_batched_bitwise(cuda, route,
+                                                    monkeypatch):
+    # K2's side of "coalesced == solo bitwise": a query's approximate
+    # scores and ids are bit-identical alone, inside a batch of 32 and
+    # under plans with other chunk counts -- over precomputed norms,
+    # decoding in the kernel, and with a predicate program
+    x = _inputs(cuda, seed=22, n_q=32, n_probe=8)
+    d = x["vec"].shape[-1]
+    st = quantize.train(x["vec"].reshape(-1, d))
+    codes = quantize.encode(st, x["vec"])
+    norms = quantize.row_norms(st, codes) if route != "decode" else None
+    prog = compile_filter(Pred(0, "<", 3)) if route == "program" else None
+
+    def scan(rows):
+        q_i8, alpha, beta = quantize.fold_queries(st, x["q"][rows])
+        return sq_scan.sq_scan_folded(
+            q_i8, alpha, beta, st.lo, st.scale, codes, x["valid"], None,
+            x["union"], 120, qsel=x["qsel"][rows], norms=norms,
+            attrs=x["attrs"] if prog is not None else None,
+            program=None if prog is None else prog.program)
+    whole = scan(slice(0, 32))
+    torch.cuda.synchronize()
+    for i in (0, 7, 31):
+        solo = scan(slice(i, i + 1))
+        assert torch.equal(solo[0], whole[0][i:i + 1])
+        assert torch.equal(solo[1], whole[1][i:i + 1])
+    for chunks in (1, 5):
+        with monkeypatch.context() as mp:
+            mp.setattr(common, "scan_plan", lambda *a, **k: chunks)
+            got = scan(slice(0, 32))
+        assert torch.equal(got[0], whole[0]), chunks
+        assert torch.equal(got[1], whole[1]), chunks
+
+
+@pytest.mark.parametrize("tier", ["none", "int8"])
+def test_executor_slices_batches_above_the_grid_limit(cuda, tier):
+    # Q = 40,000 pads to a bucket of 65,536, above pass 1's 65,535 grid
+    # rows: the wrappers launch it as two slices of 32,768, and the answer
+    # equals the two slices' own runs bit for bit (K1 on f32, K2 on int8)
+    rng = np.random.default_rng(8)
+    centers = rng.normal(size=(30, 32)).astype(np.float32) * 5
+    X = (centers[rng.integers(0, 30, 4000)]
+         + rng.normal(size=(4000, 32))).astype(np.float32)
+    cfg = IVFConfig(dim=32, target_partition_size=50, kmeans_iters=10,
+                    quantize=tier)
+    idx = _to(ivf.build_index(X, cfg=cfg, device="cpu"), cuda)
+    q = X[rng.integers(0, 4000, 40000)] + 0.2 * rng.normal(size=(40000, 32))
+    q = q.astype(np.float32)
+    spec = query.Q.knn(k=10, n_probe=4)
+    mod = sq_scan if tier == "int8" else ivf_scan
+    before = mod.LAUNCHES
+    whole = executor.run(idx, q, spec).to_numpy()
+    assert mod.LAUNCHES == before + 2
+    cut = common.MAX_QUERIES_PER_LAUNCH
+    head = executor.run(idx, q[:cut], spec).to_numpy()
+    tail = executor.run(idx, q[cut:], spec).to_numpy()
+    for a, b in ((whole[0], np.concatenate([head[0], tail[0]])),
+                 (whole[1], np.concatenate([head[1], tail[1]]))):
+        np.testing.assert_array_equal(a, b)
+    assert (whole[0][:, 0] >= 0).all()
+
+
 # the last: a 33-value IN-list, whose Or folds its results every 8 leaves
 PROGRAM_PREDS = [Pred(1, "<", 0.3), Pred(0, "==", 3),
                  And((Pred(0, "!=", 2),

@@ -22,6 +22,7 @@ from repro.core import delta as jdelta
 from repro.core import ivf as jivf
 from repro.core import maintenance as jmaint
 from repro.core import monitor as jmonitor
+from repro.core.query import Q as JQ
 from repro.core.types import IVFConfig as JConfig
 from repro.storage.engine import MicroNN as JMicroNN
 from repro_torch import convert
@@ -29,6 +30,7 @@ from repro_torch.core import delta, ivf, maintenance, monitor
 from repro_torch.core.query import Q
 from repro_torch.core.types import IVFConfig, pairwise_scores
 from repro_torch.storage.engine import MicroNN
+from repro_torch.testing import compare_topk, score_tol
 
 DIM = 16
 
@@ -441,15 +443,21 @@ def _durable(eng):
     return ids, parts, cents, csz, drift
 
 
-@pytest.fixture(params=["none", "int8"])
+_WRITTEN = [("none", "l2"), ("int8", "l2"), ("none", "cosine"),
+            ("int8", "cosine"), ("none", "ip"), ("int8", "ip")]
+
+
+@pytest.fixture(params=_WRITTEN,
+                ids=[t if m == "l2" else f"{t}-{m}" for t, m in _WRITTEN])
 def jax_written(request, tmp_path):
     """The JAX resident engine and the port's resident and paged engines,
     each recovered from its own copy of one JAX-written database."""
-    tier = request.param
+    tier, metric = request.param
     X = clustered(1500, seed=8)
     kw = dict(dim=DIM, target_partition_size=50, kmeans_iters=15,
-              delta_capacity=64, quantize=tier, rerank_factor=4)
-    path = str(tmp_path / f"{tier}.db")
+              delta_capacity=64, quantize=tier, rerank_factor=4,
+              metric=metric)
+    path = str(tmp_path / f"{tier}-{metric}.db")
     jeng = JMicroNN(dim=DIM, n_attr=1, path=path, config=JConfig(**kw))
     jeng.upsert(np.arange(len(X)), X, np.ones((len(X), 1), np.float32))
     jeng.build()
@@ -473,8 +481,21 @@ def jax_written(request, tmp_path):
     pag.close()
 
 
+def _close_rel(a, b, rtol=1e-6):
+    """|a - b| <= rtol * max |b|: the cosine tolerance (normalisation
+    reduces in torch's order, not XLA's, a last-bit difference)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    assert a.shape == b.shape
+    assert np.abs(a - b).max(initial=0.0) <= \
+        rtol * max(np.abs(b).max(initial=0.0), 1e-30)
+
+
 def test_maintenance_matches_jax_and_paged(jax_written):
+    """Same churn on the JAX engine and the port's resident and paged ones:
+    equal step lists, durable state and query ids. l2 and ip hold the
+    centroids and drift bit for bit; cosine within 1e-6 relative."""
     jres, res, pag, X = jax_written
+    metric = res.config.metric
     rng = np.random.default_rng(5)
     c0 = np.asarray(jres.index.centroids)[0]
     for wave in range(3):
@@ -491,9 +512,17 @@ def test_maintenance_matches_jax_and_paged(jax_written):
     assert any(s.kind in ("split", "merge") for s in res.maintenance_log)
     want = _durable(jres)
     for eng in (res, pag):
-        for a, b in zip(_durable(eng), want):
-            np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(_cents(res), np.asarray(jres.index.centroids))
+        for i, (a, b) in enumerate(zip(_durable(eng), want)):
+            if metric == "cosine" and i in (2, 4):      # centroids, drift
+                _close_rel(a, b)
+            else:
+                np.testing.assert_array_equal(a, b)
+    if metric == "cosine":
+        _close_rel(_cents(res), np.asarray(jres.index.centroids))
+        _close_rel(res.index.drift.numpy(), np.asarray(jres.index.drift))
+    else:
+        np.testing.assert_array_equal(_cents(res),
+                                      np.asarray(jres.index.centroids))
     np.testing.assert_array_equal(_cents(res), _cents(pag))
     np.testing.assert_array_equal(_counts(res), _counts(pag))
     np.testing.assert_array_equal(res.index.drift.numpy(), pag.index.drift)
@@ -503,6 +532,9 @@ def test_maintenance_matches_jax_and_paged(jax_written):
     b = pag.query(q, Q.knn(k=10, n_probe=8)).to_numpy()
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
+    if metric != "l2":
+        j = jres.query(q, JQ.knn(k=10, n_probe=8))
+        np.testing.assert_array_equal(a[0], np.asarray(j.ids))
 
 
 @pytest.mark.parametrize("budget", [None, 0.05])
@@ -763,3 +795,41 @@ def test_monitor_triggers_match_jax():
     rebuilt, _ = maintenance.full_rebuild(cur_t)
     assert rebuilt.num_live() == cur_t.num_live()
     assert monitor.IndexMonitor().check(rebuilt).growth < 0.1
+
+
+@pytest.mark.parametrize("tier", ["none", "int8"])
+@pytest.mark.parametrize("budget", [None, 0.05], ids=["resident", "paged"])
+def test_jax_recovers_port_written_file(tmp_path, budget, tier):
+    """The other direction of "either engine recovers the other's file":
+    the port builds, writes and drains a file; the JAX engine recovers it
+    and answers with the port's ids, scores within 1e-5 * (||q||^2 +
+    max ||v||^2)."""
+    X = clustered(1500, seed=11)
+    attrs = np.ones((len(X), 1), np.float32)
+    kw = dict(dim=DIM, target_partition_size=50, kmeans_iters=15,
+              delta_capacity=64, quantize=tier, rerank_factor=4)
+    path = str(tmp_path / f"port-{tier}.db")
+    eng = MicroNN(dim=DIM, n_attr=1, path=path, config=IVFConfig(**kw),
+                  device="cpu", memory_budget_mb=budget)
+    eng.upsert(np.arange(len(X)), X, attrs)
+    eng.build()
+    rng = np.random.default_rng(12)
+    c0 = _cents(eng)[0]
+    nv = (c0 + rng.normal(size=(120, DIM)) * 0.3).astype(np.float32)
+    eng.upsert(np.arange(9000, 9120), nv, np.ones((120, 1), np.float32))
+    eng.delete(np.arange(0, 90))
+    assert eng.maintain(until_idle=True)
+    assert eng.scheduler.pending() == []
+    q = np.concatenate([X[200:208], nv[:8]]) + 0.01
+    got = eng.query(q, Q.knn(k=10, n_probe=8))
+    eng.close()
+    jeng = JMicroNN(dim=DIM, n_attr=1, path=path, config=JConfig(**kw))
+    jeng.recover()
+    ref = jeng.query(q, JQ.knn(k=10, n_probe=8))
+    allx = np.concatenate([X, nv])
+    err, ok, bad = compare_topk(
+        np.asarray(ref.scores), np.asarray(ref.ids), got.to_numpy()[1],
+        got.to_numpy()[0], score_tol(q, float(np.sum(allx * allx, -1).max())))
+    assert ok, f"{bad} rows differ (max score err {err:.3e})"
+    np.testing.assert_array_equal(np.asarray(ref.ids), got.to_numpy()[0])
+    jeng.store.close()

@@ -1,0 +1,593 @@
+"""The port's observability layer (repro_torch.obs, the engine's traces and
+stats) against the JAX package's (repro.obs), mirroring tests/test_obs.py.
+
+  * the registry: the same sequence of operations gives the same
+    snapshot() and the same Prometheus text in both packages;
+  * explain(): on one database, the same stage names in the same order as
+    the JAX engine, and equal counters where the layout is equal
+    (partitions, n_probe, k, candidates, rf, pager hits / misses); the
+    counters that differ by design (`backend`, the jit keys `compiled` /
+    `cache_hit`, `launches`) are listed in ROADMAP's Differences;
+  * free when off: an untraced query registers no series and enters no
+    ring; the kill-switch silences trace=True;
+  * exact when on: the fault span equals the pager's counter deltas, the
+    scan span's `compiled` / `launches` equal the kernel-load and launch
+    deltas, and one query is one run_count() step;
+  * the scheduler's counters and event log, the ring and slow log, the
+    front door's traced submits.
+
+All on the CPU (the kernels' plain versions); the card's side is in
+chip_smoke.py.
+"""
+import re
+import shutil
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.query import Q as JQ
+from repro.core.types import IVFConfig as JConfig
+from repro.obs import metrics as jmetrics
+from repro.storage.engine import MicroNN as JMicroNN
+from repro_torch.core import executor
+from repro_torch.core.hybrid import Pred
+from repro_torch.core.query import Q
+from repro_torch.core.types import IVFConfig
+from repro_torch.kernels import build, ops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import recorder as obs_recorder
+from repro_torch.obs import trace as obs_trace
+from repro_torch.serving import FrontDoor
+from repro_torch.storage.engine import MicroNN
+
+DIM = 16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run beside the JAX package's under xdist on shared
+    cores; at their small sizes one intra-op thread is enough."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def clustered(n, seed, dim=DIM):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(20, dim)).astype(np.float32) * 5.0
+    return (centers[rng.integers(0, 20, n)]
+            + rng.normal(size=(n, dim))).astype(np.float32)
+
+
+def _mk(tmp_path, name, *, paged=False, quant=False, n=400, seed=0,
+        **eng_kw):
+    cfg = IVFConfig(dim=DIM, target_partition_size=50, kmeans_iters=8,
+                    delta_capacity=64,
+                    **({"quantize": "int8", "rerank_factor": 4}
+                       if quant else {}))
+    eng = MicroNN(dim=DIM, path=str(tmp_path / f"{name}.db"), config=cfg,
+                  device="cpu", memory_budget_mb=0.05 if paged else None,
+                  **eng_kw)
+    X = clustered(n, seed)
+    eng.upsert(np.arange(n), X)
+    eng.build()
+    return eng, X
+
+
+# -- the registry, against the JAX package's ---------------------------------
+
+
+def _registry_ops(mod):
+    """One sequence of registry operations; -> (snapshot, prometheus)."""
+    reg = mod.MetricsRegistry(max_series_per_name=3)
+    s = reg.scope(component="pager", inst="0")
+    s.counter("hits").inc(3)
+    s.counter("misses").inc()
+    s.scope(tenant='a"b').counter("hits").inc(2)
+    reg.gauge("depth").set(2.5)
+    reg.gauge("live", fn=lambda: 7)
+    h = reg.histogram("wait.s", component="fd")
+    for v in (1e-4, 3e-4, 0.002, 0.02, 0.5, 7.0):
+        h.observe(v)
+    for i in range(5):                       # evicts two series
+        reg.counter("chatty", rid=str(i)).inc(i)
+    other = mod.Histogram("other")
+    other.observe(0.003)
+    h.merge(other)
+    return reg.snapshot(), reg.to_prometheus()
+
+
+def test_registry_snapshot_and_prometheus_equal_jax():
+    snap, text = _registry_ops(obs_metrics)
+    jsnap, jtext = _registry_ops(jmetrics)
+    assert snap == jsnap
+    assert text == jtext
+
+
+def test_counter_gauge_get_or_create():
+    reg = obs_metrics.MetricsRegistry()
+    c = reg.counter("reqs", comp="a")
+    c.inc()
+    c.inc(4)
+    assert c.value == 5
+    assert reg.counter("reqs", comp="a") is c
+    assert reg.counter("reqs", comp="b") is not c
+    g = reg.gauge("depth")
+    g.set(3.5)
+    assert g.value == 3.5
+    reg.gauge("live", fn=lambda: 7)
+    assert reg.gauge("live").value == 7
+    with pytest.raises(AssertionError):
+        reg.histogram("reqs", comp="a")
+
+
+def test_histogram_quantiles_and_merge():
+    reg = obs_metrics.MetricsRegistry()
+    h = reg.histogram("lat")
+    assert h.quantile(0.5) == 0.0
+    for v in (0.001, 0.002, 0.004, 0.008, 0.1):
+        h.observe(v)
+    assert h.count == 5 and h.sum == pytest.approx(0.115)
+    assert 0.001 <= h.quantile(0.50) <= 0.01
+    assert h.quantile(1.0) == pytest.approx(0.1)
+    h2 = obs_metrics.Histogram("lat2")
+    h2.observe(0.2)
+    h.merge(h2)
+    assert h.count == 6
+    assert h.quantile(1.0) == pytest.approx(0.2)
+    with pytest.raises(AssertionError):
+        h.merge(obs_metrics.Histogram("odd", buckets=(1.0, 2.0)))
+
+
+def test_scope_binds_and_nests_labels():
+    reg = obs_metrics.MetricsRegistry()
+    s = reg.scope(engine="0")
+    c = s.counter("ops", component="pager")
+    assert dict(c.labels) == {"engine": "0", "component": "pager"}
+    s2 = s.scope(component="exec").scope(component="exec2")
+    assert dict(s2.counter("ops").labels) == {"engine": "0",
+                                              "component": "exec2"}
+
+
+def test_snapshot_and_prometheus_export():
+    reg = obs_metrics.MetricsRegistry()
+    reg.counter("hits", component="pager").inc(3)
+    reg.gauge("depth").set(2)
+    reg.histogram("wait_s").observe(0.005)
+    snap = reg.snapshot()
+    assert snap["counters"]['hits{component="pager"}'] == 3
+    assert snap["gauges"]["depth"] == 2
+    hs = snap["histograms"]["wait_s"]
+    assert hs["count"] == 1 and hs["p50"] > 0
+    text = reg.to_prometheus()
+    assert "# TYPE hits counter" in text
+    assert 'hits{component="pager"} 3' in text
+    assert "# TYPE wait_s histogram" in text
+    assert 'le="+Inf"' in text and "wait_s_count 1" in text
+
+
+def test_registry_cardinality_guard_caps_per_name_series():
+    reg = obs_metrics.MetricsRegistry(max_series_per_name=4)
+    for i in range(10):
+        reg.counter("chatty", rid=str(i)).inc()
+    chatty = [k for k in reg.snapshot()["counters"]
+              if k.startswith("chatty")]
+    assert len(chatty) == 4
+    kept = {k.split('rid="')[1].rstrip('"}') for k in chatty}
+    assert kept == {"6", "7", "8", "9"}
+    assert reg.counter("obs_series_evicted").value == 6
+    assert reg.counter("chatty", rid="0").value == 0
+
+
+def test_registry_cardinality_guard_lru_touch_on_reuse():
+    reg = obs_metrics.MetricsRegistry(max_series_per_name=3)
+    hot = reg.counter("m", k="hot")
+    hot.inc(5)
+    for i in range(8):
+        reg.counter("m", k=f"cold{i}")
+        assert reg.counter("m", k="hot") is hot
+    assert hot.value == 5
+    assert reg.counter("obs_series_evicted").value == 6
+    for i in range(10):
+        reg.gauge("g_other", i=str(i)).set(i)
+    assert reg.counter("m", k="hot") is hot
+
+
+_PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+
+
+def _parse_prom_labels(s):
+    """Strict text-format label parser (escapes \\\\, \\" and \\n)."""
+    out = {}
+    i = 0
+    while i < len(s):
+        eq = s.index("=", i)
+        key = s[i:eq]
+        assert s[eq + 1] == '"', s
+        i, val = eq + 2, []
+        while s[i] != '"':
+            if s[i] == "\\":
+                esc = s[i + 1]
+                assert esc in ('\\', '"', 'n'), f"bad escape \\{esc}"
+                val.append({"\\": "\\", '"': '"', "n": "\n"}[esc])
+                i += 2
+            else:
+                val.append(s[i])
+                i += 1
+        out[key] = "".join(val)
+        i += 1
+        if i < len(s):
+            assert s[i] == ",", s
+            i += 1
+    return out
+
+
+def test_prometheus_roundtrip_nasty_labels():
+    reg = obs_metrics.MetricsRegistry()
+    nasty = {"path": 'C:\\tmp\\"x"', "note": 'line1\nline2', "plain": "ok"}
+    reg.counter("pager.hits", **nasty).inc(3)
+    reg.counter("pager.hits", plain="other").inc(1)
+    reg.gauge("depth", q='say "when"').set(2.5)
+    reg.histogram("wait.s", tenant="a\\b").observe(0.004)
+    helps, types, samples = {}, {}, []
+    for line in reg.to_prometheus().splitlines():
+        if not line:
+            continue
+        if line.startswith("# HELP "):
+            fam = line.split(" ", 3)[2]
+            helps[fam] = helps.get(fam, 0) + 1
+        elif line.startswith("# TYPE "):
+            fam = line.split(" ", 3)[2]
+            types[fam] = types.get(fam, 0) + 1
+            assert fam in helps
+        else:
+            m = _PROM_SAMPLE.match(line)
+            assert m, f"unparseable sample line: {line!r}"
+            name, raw, value = m.groups()
+            samples.append((name, _parse_prom_labels(raw) if raw else {},
+                            float(value)))
+    assert helps == {"pager_hits": 1, "depth": 1, "wait_s": 1}
+    assert types == helps
+    assert [ls for n, ls, v in samples
+            if n == "pager_hits" and v == 3.0] == [nasty]
+    assert any(n == "depth" and ls == {"q": 'say "when"'} and v == 2.5
+               for n, ls, v in samples)
+    assert [ls for n, ls, _ in samples if n == "wait_s_bucket"
+            and ls.get("le") == "+Inf"] == [{"tenant": "a\\b", "le": "+Inf"}]
+
+
+# -- explain(): complete traces in every engine mode -------------------------
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["resident", "paged"])
+def test_explain_complete_all_modes(tmp_path, paged, quant):
+    eng, X = _mk(tmp_path, f"ex-{paged}-{quant}", paged=paged, quant=quant)
+    tr = eng.explain(X[:2] + 0.01, Q.knn(k=5, n_probe=4))
+    assert tr is not None and tr.mode == ("paged" if paged else "resident")
+    assert tr.n_queries == 2 and tr.total_ms > 0 and tr.spec is not None
+    for stage in ("plan", "probe", "scan", "merge"):
+        assert stage in tr, (stage, tr.span_names)
+    scan = tr.get("scan")
+    assert scan.counters["partitions"] > 0 and scan.counters["rows"] > 0
+    assert scan.counters["backend"] == "torch"
+    assert scan.counters["quantized"] is quant
+    assert tr.counter("probe", "partitions") > 0
+    assert ("pager_fault" in tr) == paged
+    assert ("rerank" in tr) == quant
+    assert tr.result is not None and tr.result.trace is tr
+    assert tr in eng.traces.traces()
+    assert sum(s.dur_ms for s in tr.spans.values()) <= tr.total_ms
+    txt = tr.format()
+    assert "scan" in txt and "QueryTrace" in txt
+    eng.close()
+
+
+# the counters both packages compute from the same layout
+_SHARED = {"plan": ("kind", "k", "n_probe", "hybrid", "predicate"),
+           "probe": ("partitions", "n_probe", "kind", "rows_cap"),
+           "pager_fault": ("hits", "misses", "admitted"),
+           "scan": ("partitions", "rows", "chunks", "q_bucket",
+                    "quantized", "fused"),
+           "rerank": ("candidates", "rf", "rows_gathered", "k_out",
+                      "fused"),
+           "merge": ("k", "k_scan", "fused")}
+
+
+@pytest.fixture(scope="module", params=["none", "int8"])
+def twin_engines(request, tmp_path_factory):
+    """The JAX and the port's engines, resident and paged, each on its own
+    copy of one JAX-written database."""
+    tier = request.param
+    X = clustered(900, seed=3)
+    attrs = (np.arange(900) % 4).astype(np.float32)[:, None]
+    kw = dict(dim=DIM, target_partition_size=50, kmeans_iters=10,
+              delta_capacity=64, quantize=tier, rerank_factor=4)
+    path = str(tmp_path_factory.mktemp("explain") / f"{tier}.db")
+    jeng = JMicroNN(dim=DIM, n_attr=1, path=path, config=JConfig(**kw))
+    jeng.upsert(np.arange(900), X, attrs)
+    jeng.build()
+    jeng.store.db.commit()
+    jeng.store.close()
+    engines = {}
+    for name, budget in (("res", None), ("pag", 0.05)):
+        for side in ("jax", "port"):
+            p = f"{path}.{side}.{name}"
+            shutil.copy(path, p)
+            if side == "jax":
+                e = JMicroNN(dim=DIM, n_attr=1, path=p, config=JConfig(**kw),
+                             memory_budget_mb=budget)
+            else:
+                e = MicroNN(dim=DIM, n_attr=1, path=p, config=IVFConfig(**kw),
+                            device="cpu", memory_budget_mb=budget)
+            e.recover()
+            engines[side, name] = e
+    yield engines, X
+    for (side, _), e in engines.items():
+        e.store.close() if side == "jax" else e.close()
+
+
+_ROUTES = {
+    "ann": (lambda q: q.knn(k=10, n_probe=4), ("res", "pag")),
+    "exact": (lambda q: q.exact(k=10), ("res",)),
+    "prefilter": (lambda q: q.knn(k=10, n_probe=4).where(
+        _pred(q, 0, "==", 1.0)).prefilter(64), ("res",)),
+    "postfilter": (lambda q: q.knn(k=10, n_probe=4).where(
+        _pred(q, 0, "<", 2.0)).postfilter(), ("res", "pag")),
+}
+
+
+def _pred(q, col, op, v):
+    if q is Q:
+        return Pred(col, op, v)
+    from repro.core.hybrid import Pred as JPred
+    return JPred(col, op, v)
+
+
+@pytest.mark.parametrize("route", sorted(_ROUTES))
+def test_explain_matches_jax(twin_engines, route):
+    engines, X = twin_engines
+    make, modes = _ROUTES[route]
+    q = X[100:102] + 0.01
+    for mode in modes:
+        jt = engines["jax", mode].explain(q, make(JQ))
+        pt = engines["port", mode].explain(q, make(Q))
+        assert pt.span_names == jt.span_names, (mode, route)
+        for name, keys in _SHARED.items():
+            if name not in jt:
+                continue
+            for key in keys:
+                assert pt.counter(name, key, None) == \
+                    jt.counter(name, key, None), (mode, route, name, key)
+        ji, ps = np.asarray(jt.result.ids), pt.result.to_numpy()[0]
+        np.testing.assert_array_equal(np.sort(ji, 1), np.sort(ps, 1))
+
+
+def test_trace_counters_reconcile_paged(tmp_path):
+    eng, X = _mk(tmp_path, "recon", paged=True, quant=True, n=600)
+    spec = Q.knn(k=5, n_probe=4)
+    eng.query(X[:2], spec)
+    s0 = eng.stats()
+    tr = eng.explain(X[300:302], spec)
+    s1 = eng.stats()
+    for key in ("hits", "misses", "bytes_read"):
+        assert tr.counter("pager_fault", key) == s1[key] - s0[key], key
+    assert tr.counter("pager_fault", "hits") \
+        + tr.counter("pager_fault", "misses") > 0
+    eng.close()
+
+
+def test_trace_launch_and_load_counters_reconcile(tmp_path):
+    """The port's counterpart of the reference's compile reconciliation:
+    the scan span's `launches` and `compiled` equal the launch and
+    kernel-load deltas (both 0 on the CPU, where the plain versions run),
+    and every query is one run_count() step."""
+    eng, X = _mk(tmp_path, "loads", quant=True)
+    spec = Q.knn(k=7, n_probe=5)
+    for i in range(2):
+        l0 = sum(ops.launch_counts().values())
+        c0, r0 = build.load_count(), executor.run_count()
+        tr = eng.explain(X[i:i + 1], spec)
+        assert tr.counter("scan", "launches") == \
+            sum(ops.launch_counts().values()) - l0
+        assert tr.counter("scan", "compiled") == build.load_count() - c0
+        assert tr.counter("scan", "cache_hit") is \
+            (tr.counter("scan", "compiled") == 0)
+        assert executor.run_count() == r0 + 1
+    st = eng.stats()
+    assert st["run_count"] == executor.run_count()
+    assert st["kernel_loads"] == build.load_count()
+    assert "trace_count" not in st and "compile_cache_size" not in st
+    snap = obs_metrics.default_registry().snapshot()["gauges"]
+    assert snap['run_count{component="executor"}'] == executor.run_count()
+    eng.close()
+
+
+# -- tracing off: zero cost, zero allocation ---------------------------------
+
+
+def test_untraced_queries_allocate_nothing(tmp_path):
+    eng, X = _mk(tmp_path, "zero")
+    spec = Q.knn(k=5, n_probe=4)
+    eng.query(X[:1], spec)
+    reg = obs_metrics.default_registry()
+    size0, ring0 = reg.size(), len(eng.traces)
+    for i in range(5):
+        assert eng.query(X[i:i + 1], spec).trace is None
+    assert reg.size() == size0, "an untraced query registered a series"
+    assert len(eng.traces) == ring0, "an untraced query entered the ring"
+    obs_trace.set_enabled(False)
+    try:
+        rs = eng.query(X[:1], spec, trace=True)
+        assert rs.trace is None and len(eng.traces) == ring0
+    finally:
+        obs_trace.set_enabled(True)
+    eng.close()
+
+
+# -- front door: per-caller traces under concurrent load ---------------------
+
+
+def test_frontdoor_traced_submits_under_threads(tmp_path):
+    eng, X = _mk(tmp_path, "fdtrace")
+    spec = Q.knn(k=5, n_probe=4)
+    n_req = 8
+    solo = [eng.query(X[i] + 0.01, spec) for i in range(n_req)]
+    results = [None] * n_req
+    # a window far above the test's length, closed by max_batch_rows:
+    # the dispatcher fuses all eight requests once they are queued
+    with FrontDoor(eng, window_s=30.0, max_batch_rows=n_req) as fd:
+        def worker(i):
+            results[i] = fd.query(X[i] + 0.01, spec, trace=(i % 2 == 0),
+                                  timeout=60)
+        ts = [threading.Thread(target=worker, args=(i,))
+              for i in range(n_req)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        st = fd.stats()
+    assert st["completed"] == n_req and st["failed"] == 0
+    assert st["batches"] == 1 and st["coalesced"] == n_req
+    for i, rs in enumerate(results):
+        np.testing.assert_array_equal(rs.to_numpy()[0],
+                                      solo[i].to_numpy()[0])
+        if i % 2 == 0:
+            tr = rs.trace
+            assert tr is not None and "queue_wait" in tr
+            for stage in ("plan", "probe", "scan"):
+                assert stage in tr, (stage, tr.span_names)
+            assert tr.shared is not None
+            assert tr in eng.traces.traces()
+            assert tr.counter("split", "callers") == n_req
+        else:
+            assert rs.trace is None
+    traced = [r.trace for i, r in enumerate(results) if i % 2 == 0]
+    assert len({id(t.get("scan")) for t in traced}) == 1
+    eng.close()
+
+
+def test_frontdoor_stats_derive_from_histograms(tmp_path):
+    eng, X = _mk(tmp_path, "fdh")
+    with FrontDoor(eng, window_s=0.0) as fd:
+        for i in range(4):
+            fd.query(X[i], Q.knn(k=5, n_probe=4), timeout=30)
+        st = fd.stats()
+        assert st["total_p50_ms"] > 0 and st["execute_p99_ms"] > 0
+        assert fd.metrics.histogram("total_s").count == 4
+    eng.close()
+
+
+# -- scheduler telemetry + maintenance event log -----------------------------
+
+
+def test_scheduler_telemetry_and_event_log(tmp_path):
+    eng, X = _mk(tmp_path, "sched", n=400)
+    eng.upsert(np.arange(400, 480), clustered(80, seed=9))
+    reports = eng.maintain(until_idle=True)
+    assert reports
+    st = eng.scheduler.stats()
+    assert st["steps"] == len(reports)
+    assert st["rows_moved"] == sum(r.rows for r in reports)
+    assert st["bytes_written"] == sum(r.bytes_written for r in reports)
+    assert sum(st["actions"].values()) == st["steps"]
+    assert st["actions"]["flush"] >= 1
+    assert eng.stats()["scheduler"]["steps"] == st["steps"]
+    events = eng.traces.events()
+    kinds = [e.kind for e in events]
+    assert kinds.count("step") == len(reports)
+    assert kinds.index("planned") < kinds.index("step")
+    steps = [e for e in events if e.kind == "step"]
+    assert sum(e.rows for e in steps) == st["rows_moved"]
+    assert all(e.dur_ms >= 0 and e.action for e in steps)
+    assert all(e.to_dict()["kind"] == e.kind for e in events)
+    eng.close()
+
+
+# -- trace ring + slow-query log ---------------------------------------------
+
+
+def test_trace_ring_bounded_and_slow_log(tmp_path):
+    eng, X = _mk(tmp_path, "ring", trace_ring_capacity=4, slow_query_ms=0.0)
+    spec = Q.knn(k=5, n_probe=4)
+    for i in range(6):
+        eng.explain(X[i:i + 1], spec)
+    assert len(eng.traces) == 4 and len(eng.traces.traces()) == 4
+    slow = eng.traces.slow()
+    assert len(slow) == 6 and all(t.total_ms >= 0.0 for t in slow)
+    eng.traces.clear()
+    assert len(eng.traces) == 0 and not eng.traces.slow()
+    eng.close()
+
+
+def test_slow_log_threshold_filters(tmp_path):
+    eng, X = _mk(tmp_path, "slowhi", slow_query_ms=1e9)
+    eng.explain(X[:1], Q.knn(k=5, n_probe=4))
+    assert len(eng.traces.traces()) == 1
+    assert eng.traces.slow() == []
+    eng.close()
+
+
+# -- recorder + traces + daemon under threads, pinned against a twin ---------
+
+
+def test_interleave_recorder_traces_pinned_vs_twin(tmp_path):
+    """Flight recorder + trace ring + maintenance daemon under threaded
+    traced submits: every answer equals a single-threaded twin's bit for
+    bit, the capture replays on the twin, the daemon survives. Each round
+    the dispatcher waits for all callers (max_batch_rows = callers, a
+    window far above the test's length), so every fused call has exactly
+    one request per thread and no request runs solo."""
+    eng, X = _mk(tmp_path, "il-mt", seed=5)
+    twin, _ = _mk(tmp_path, "il-st", seed=5)
+    spec = Q.knn(k=5, n_probe=4)
+    n_threads, per = 4, 6
+    probes = [[X[(t * per + j) % len(X)] + 0.01 for j in range(per)]
+              for t in range(n_threads)]
+    results = [[None] * per for _ in range(n_threads)]
+    errors = []
+    cap = str(tmp_path / "cap.db")
+    with obs_recorder.recording(cap) as rec:
+        with FrontDoor(eng, window_s=30.0, max_batch_rows=n_threads,
+                       maintenance=True) as fd:
+            def caller(t):
+                try:
+                    for j in range(per):
+                        results[t][j] = fd.query(
+                            probes[t][j], spec, trace=(t % 2 == 0),
+                            timeout=60)
+                except BaseException as e:  # noqa: BLE001
+                    errors.append(e)
+            threads = [threading.Thread(target=caller, args=(t,))
+                       for t in range(n_threads)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(120)
+            assert not errors, errors
+            assert eng.scheduler.daemon_alive
+            assert fd.stats()["solo"] == 0
+            eng.upsert(np.arange(400, 440), clustered(40, seed=6))
+            eng.maintain(until_idle=True)
+            assert any(e.kind == "step" for e in eng.traces.events())
+        assert rec.recorded == n_threads * per
+    for t in range(n_threads):
+        for j in range(per):
+            a = results[t][j].to_numpy()
+            b = twin.query(probes[t][j], spec).to_numpy()
+            np.testing.assert_array_equal(a[0], b[0])
+            np.testing.assert_array_equal(a[1], b[1])
+            rs = results[t][j]
+            if t % 2 == 0:
+                assert rs.trace is not None \
+                    and rs.trace in eng.traces.traces()
+            else:
+                assert rs.trace is None
+    rep = obs_recorder.replay(cap, engine=twin, strict=True)
+    assert rep.ok and rep.self_checked == n_threads * per
+    eng.close()
+    twin.close()

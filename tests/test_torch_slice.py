@@ -225,6 +225,86 @@ def test_coalesced_equals_solo():
         assert torch.equal(part.scores, solo.scores)
 
 
+@pytest.mark.parametrize("kind", ["ann", "exact", "prefilter"])
+@pytest.mark.parametrize("tier", ["none", "int8"])
+def test_search_shim_matches_jax(tier, kind):
+    """executor.search, the kwarg shim, against the reference's: the same
+    kwargs build the same spec and the same answers."""
+    from repro.core.hybrid import compile_filter as jcompile
+    from repro_torch.core.hybrid import compile_filter
+    jidx, X, attrs, q = _jax_index("l2", tier)
+    tidx = _convert(jidx)
+    kw = dict(k=10, kind=kind, n_probe=4)
+    jkw, tkw = dict(kw), dict(kw)
+    if kind == "prefilter":
+        jkw.update(cap=512, attr_filter=jcompile(JPred(0, "==", 2.0)))
+        tkw.update(cap=512, attr_filter=compile_filter(Pred(0, "==", 2.0)))
+    jres = jexecutor.search(jidx, jnp.asarray(q), **jkw)
+    tres = executor.search(tidx, q, **tkw)
+    _assert_same(jres, tres, q, X, "l2")
+    assert tres.spec == executor.search(tidx, q, **tkw).spec
+    with pytest.raises(ValueError):
+        executor.search(tidx, q, k=10, kind="prefilter")
+
+
+def test_index_scan_topk_and_running_topk_init_match_jax():
+    """ops.index_scan_topk (K1 over each query's probes, flattened with
+    duplicates, no delta) and topk.running_topk_init against the
+    reference's (its Pallas kernel in interpret mode on the CPU)."""
+    from repro.core import topk as jtopk
+    from repro.kernels import ops as jops
+    from repro_torch.core import topk
+    from repro_torch.kernels import ops
+    jidx, X, _, q = _jax_index("l2", "none")
+    tidx = _convert(jidx)
+    js, ji = jops.index_scan_topk(jidx, jnp.asarray(q[:4]), 10, 3,
+                                  interpret=True)
+    ts, ti = ops.index_scan_topk(tidx, torch.as_tensor(q[:4]), 10, 3)
+    err, ok, bad = compare_topk(
+        np.asarray(js), np.asarray(ji), ts.numpy(), ti.numpy(),
+        score_tol(q[:4], float(np.sum(X * X, -1).max())))
+    assert ok, f"{bad} rows differ (max score err {err:.3e})"
+    for shape, k in (((3,), 5), ((2, 4), 7), ((), 3)):
+        js, ji = jtopk.running_topk_init(shape, k)
+        ts, ti = topk.running_topk_init(shape, k)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        assert ts.dtype == torch.float32 and ti.dtype == torch.int32
+
+
+def test_oversize_scan_k_is_refused_by_name(tmp_path):
+    """A spec whose scan would keep more than executor.MAX_SCAN_K
+    candidates per query raises the named ValueError before planning, on
+    the CPU as on the card: k itself on the float32 tier, k *
+    rerank_factor on the int8 tier, resident and paged."""
+    limit = executor.MAX_SCAN_K
+    f32 = _convert(_jax_index("l2", "none")[0])
+    i8 = _convert(_jax_index("l2", "int8")[0])
+    q = _data()[2][:2]
+    msg = f"exceeds MAX_SCAN_K={limit}"
+    with pytest.raises(ValueError, match=msg):
+        executor.run(f32, q, query.Q.knn(k=limit + 1))
+    with pytest.raises(ValueError, match=f"k_scan={limit + 1} " + msg):
+        executor.run(f32, q, query.Q.exact(k=limit + 1))
+    rf = i8.config.rerank_factor
+    k = limit // rf + 1
+    with pytest.raises(ValueError, match=f"k_scan={k * rf} " + msg):
+        executor.run(i8, q, query.Q.knn(k=k))
+    # the float32 tier of the same index keeps k candidates: not refused
+    assert executor.run(i8, q, query.Q.knn(k=k).quantized(False)).k <= k
+    X, attrs, _ = _data(n=400)
+    eng = MicroNN(dim=DIM, path=str(tmp_path / "k.db"), device="cpu",
+                  config=IVFConfig(quantize="int8", **CFG),
+                  memory_budget_mb=0.2)
+    eng.upsert(np.arange(len(X)), X)
+    eng.build()
+    with pytest.raises(ValueError, match=msg):
+        eng.query(q, query.Q.knn(k=k))
+    with pytest.raises(ValueError, match=msg):
+        eng.query(q, query.Q.exact(k=k))
+    eng.close()
+
+
 def test_backend_names_follow_the_device():
     jidx, X, _, q = _jax_index("l2", "none")
     tidx = _convert(jidx)
@@ -364,6 +444,10 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "need = {'repro_torch.obs.metrics', 'repro_torch.obs.trace', "
+        "'repro_torch.obs.recorder', 'repro_torch.obs.http', "
+        "'repro_torch.serving.frontdoor'}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

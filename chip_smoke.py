@@ -38,6 +38,17 @@ Phases (any failure exits non-zero and prints no result line):
                  change no answer. Its paged half (front door, explain()
                  with the fault span == stats(), flight replay) runs at
                  the end of the paged phase on the int8 pool.
+     sharded  -- (inside main, after the writes, before maintenance) the
+                 sharded index on a (data 1, model 4) mesh: 4 ranks spawned
+                 by torch.multiprocessing, all on the one card, on gloo
+                 (host-staged collectives); each gets the resident index
+                 by CUDA IPC and slices its quarter (k = 10,000, the delta
+                 holding the 8 upserts), runs distributed_query over the
+                 512 queries (k=100, n_probe=8) with each merge; rank 0
+                 holds both to executor.run on the whole index: ids equal,
+                 scores bit for bit (a row may differ only at a
+                 probe-boundary tie of centroid scores, reported).
+                 Launches are counted in each rank.
      maintenance -- (inside main, after the writes, before recover) the
                  monitor's verdict and work queue on the 1M engine, then
                  maintain(until_idle=True, max_steps=S), each step timed by
@@ -54,6 +65,17 @@ Phases (any failure exits non-zero and prints no result line):
      rebuild  -- on that file: upserts, maintain() acting on the monitor's
                  verdict, then maintain(force="rebuild") paged and, on the
                  same file, resident -- each through K3.
+     fleet    -- 16 tenants of 25,000 x 128 rows (int8, rf 4), each built
+                 once by the paged build and copied into two arms: one
+                 Fleet at budget B (the smallest whole MiB seating one
+                 tenant's partitions) and 16 solo paged engines at B/16;
+                 bench_fleet's Zipf(1.6) traffic, 800 calls of 4 rows
+                 (k=10, n_probe=8): every call equal across the arms bit
+                 for bit, the fleet's bytes <= B at every 16th call, both
+                 arms' calls/s; a second Fleet with max_live=4 (spills)
+                 answering the same; upserts into 2 tenants drained by the
+                 deficit round robin; health() and /healthz; a flight
+                 capture through the fleet replayed bit for bit.
      Each path's kernel launch counters are zeroed just before it and read
      just after; every kernel the path runs must show launches.
   4. kernels  -- each kernel against its plain PyTorch version on the card
@@ -1051,6 +1073,8 @@ def main_path():
     log(f"writes: 8 upserts found at rank 0, deleted id {victim} gone")
     main_counts = {k_: c + main_counts[k_]
                    for k_, c in ops.launch_counts().items()}
+    # the sharded ranks count their own launches, in their own processes
+    out["sharded"] = sharded_phase(eng, dict(queries=queries))
     out["maintenance"] = maintenance_phase(
         eng, dict(X=X, queries=queries, Xg=Xg, qg=qg, v2_max=v2_max,
                   new_ids=new_ids, new_vecs=new_vecs, victim=victim))
@@ -2058,6 +2082,441 @@ def rebuild_phase(ctx, pb):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the fleet: many tenants on one frame pool
+# ---------------------------------------------------------------------------
+
+FLEET_TENANTS = 16
+FLEET_ROWS = 25_000          # per tenant: the SIFT row (d = 128)
+FLEET_CALLS = 800            # Zipf(1.6) over tenant ranks, 4 rows a call
+FLEET_BATCH = 4
+FLEET_ZIPF_S = 1.6
+FLEET_BACKLOG_ROWS = 900     # 0.88 of the default delta: a flush each
+FLEET_REOPEN_LIVE = 4        # the second fleet's max_live: it must spill
+
+
+def _copy_db(src: Path, dst: Path):
+    for suffix in ("", "-wal", "-shm"):
+        p = Path(str(src) + suffix)
+        if p.exists():
+            shutil.copy(p, str(dst) + suffix)
+
+
+def _fleet_drive(query_fn, tenants, schedule, probes, sample_fn=None):
+    """The fixed workload through `query_fn(tenant, q)`: (seconds, answers,
+    budget samples at every 16th call)."""
+    import torch
+    answers, samples = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, r in enumerate(schedule):
+        answers.append(query_fn(tenants[r], probes[i]).to_numpy())
+        if sample_fn is not None and i % 16 == 0:
+            samples.append(sample_fn())
+    return time.perf_counter() - t0, answers, samples
+
+
+def _same_answers(a, b):
+    import numpy as np
+    return len(a) == len(b) and all(
+        np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+        for x, y in zip(a, b))
+
+
+def fleet_phase():
+    """Many tenants, one frame pool (benchmarks/bench_fleet.py's
+    configuration at the SIFT row's width): FLEET_TENANTS tenants of
+    FLEET_ROWS x 128 rows (data/synthetic's mixture, seed = tenant index,
+    2 attributes), int8 with rerank_factor 4, each built once by the paged
+    build and copied byte for byte into two arms: one Fleet at budget B
+    (the smallest whole MiB that seats one tenant's partitions and not all
+    of them) and FLEET_TENANTS solo paged engines at B / FLEET_TENANTS
+    each. The same Zipf(1.6) sequence of FLEET_CALLS calls of 4 rows
+    (Q.knn(k=10, n_probe=8)) runs through both: every answer equal bit for
+    bit, the fleet's resident bytes <= B at every 16th call. Then a second
+    Fleet over the same root with max_live=4 (spills and reopens) answers
+    the same; upserts into 2 tenants and fleet.maintain() step both through
+    the deficit round robin; health() and /healthz; a flight capture
+    through the fleet replayed bit for bit."""
+    import numpy as np
+    import torch
+    import urllib.request
+    from repro_torch.core.query import Q as QB
+    from repro_torch.data import synthetic
+    from repro_torch.fleet import Fleet, compute_frame_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.obs import recorder as obs_recorder
+    from repro_torch.obs.http import ExpositionServer
+    from repro_torch.storage.engine import MicroNN
+    t_phase = time.perf_counter()
+    T, n, d = FLEET_TENANTS, FLEET_ROWS, 128
+    tenants = [f"user{t}" for t in range(T)]
+    work = WORK / "fleet"
+    shutil.rmtree(work, ignore_errors=True)
+    for sub in ("src", "fleet", "naive"):
+        (work / sub).mkdir(parents=True)
+    knn = QB.knn(k=10, n_probe=8)
+    ops.reset_launch_counts()
+
+    # -- one paged build per tenant ----------------------------------------
+    t0 = time.perf_counter()
+    probes_by_tenant, k_by, pmax_by = {}, {}, {}
+    for t, name in enumerate(tenants):
+        ds = synthetic.make("sift", scale=n / 1e6, seed=t, with_gt=False)
+        rng = np.random.default_rng(t)
+        attrs = np.stack([rng.integers(0, 10, n).astype(np.float32),
+                          rng.random(n).astype(np.float32)], axis=1)
+        eng = MicroNN(dim=d, n_attr=2, path=str(work / "src" / f"{name}.db"),
+                      quantize="int8", rerank_factor=4,
+                      memory_budget_mb=PAGED_BUDGET_MB)
+        eng.upsert(np.arange(n), ds.X, attrs)
+        eng.build()
+        k_by[name], pmax_by[name] = eng.index.k, eng.index.cache.p_max
+        eng.store.db.execute("PRAGMA wal_checkpoint(TRUNCATE)")
+        eng.close()
+        probes_by_tenant[name] = ds.Q
+    build_s = time.perf_counter() - t0
+    k0, p_max = k_by[tenants[0]], max(pmax_by.values())
+    fb = compute_frame_bytes(p_max, d, "int8", 2)
+    budget_mb = -(-(k0 * fb) // 2 ** 20)
+    log(f"fleet: {T} tenants of {n} x {d} built (paged) in {build_s:.1f} s;"
+        f" k {min(k_by.values())}-{max(k_by.values())} (k0 {k0}), p_max "
+        f"{min(pmax_by.values())}-{p_max}; frame {fb} B -> budget B = "
+        f"{budget_mb} MiB")
+    sched_rng = np.random.default_rng(11)
+    p = np.arange(1, T + 1, dtype=np.float64) ** -FLEET_ZIPF_S
+    schedule = sched_rng.choice(T, size=FLEET_CALLS, p=p / p.sum())
+    cursor = {name: 0 for name in tenants}
+    probes = []
+    for r in schedule:
+        name = tenants[r]
+        qs = probes_by_tenant[name]
+        i = cursor[name] % (len(qs) - FLEET_BATCH)
+        cursor[name] += FLEET_BATCH
+        probes.append(qs[i:i + FLEET_BATCH])
+    out = dict(tenants=T, rows=n, calls=FLEET_CALLS, budget_mb=budget_mb,
+               k0=k0, p_max=p_max, build_s=build_s,
+               calls_by_tenant=np.bincount(schedule, minlength=T).tolist())
+
+    # -- the fleet arm: ONE pool at budget B -------------------------------
+    for name in tenants:
+        _copy_db(work / "src" / f"{name}.db", work / "fleet" / f"{name}.db")
+        _copy_db(work / "src" / f"{name}.db", work / "naive" / f"{name}.db")
+    fleet = Fleet(str(work / "fleet"), dim=d, n_attr=2, budget_mb=budget_mb,
+                  max_live=T, quantize="int8", rerank_factor=4)
+    for name in tenants:
+        fleet.get(name)
+    cap = fleet.pool.capacity
+    log(f"fleet: pool {cap} frames of {fleet.pool.frame_bytes} B (p_max "
+        f"{fleet.pool.p_max}); one tenant has {k0} partitions, all {T} "
+        f"{sum(k_by.values())}")
+    check(k0 <= cap < T * k0, f"budget premise broken: {k0} <= {cap} < "
+          f"{T * k0} does not hold")
+    budget = fleet.pool.budget_bytes
+    wall_f, ans_f, samples = _fleet_drive(
+        lambda t, q: fleet.query(t, q, knn), tenants, schedule, probes,
+        sample_fn=lambda: fleet.pool.resident_bytes)
+    check(max(samples) <= budget, f"fleet resident bytes {max(samples)} "
+          f"exceed the budget {budget}")
+    miss_f = sum(fleet.get(t).index.cache.misses for t in tenants)
+    frames = {t: v["resident_frames"]
+              for t, v in fleet.pool.stats()["tenants"].items()}
+    fleet.close()
+
+    # -- the naive arm: T private pools at B / T ---------------------------
+    solos = {}
+    for name in tenants:
+        eng = MicroNN(dim=d, n_attr=2, path=str(work / "naive" /
+                                                f"{name}.db"),
+                      quantize="int8", rerank_factor=4,
+                      memory_budget_mb=budget_mb / T)
+        eng.recover()
+        solos[name] = eng
+    wall_n, ans_n, _ = _fleet_drive(
+        lambda t, q: solos[t].query(q, knn), tenants, schedule, probes)
+    miss_n = sum(e.index.cache.misses for e in solos.values())
+    for eng in solos.values():
+        eng.close()
+    same = _same_answers(ans_f, ans_n)
+    qps_f, qps_n = FLEET_CALLS / wall_f, FLEET_CALLS / wall_n
+    log(f"fleet arm: {qps_f:.2f} calls/s ({wall_f:.2f} s), {miss_f} misses;"
+        f" naive arm: {qps_n:.2f} calls/s ({wall_n:.2f} s), {miss_n} misses;"
+        f" ratio {qps_f / qps_n:.4f}; budget samples max {max(samples)} of "
+        f"{budget} B ({len(samples)} samples); every call equal bit for bit:"
+        f" {same}")
+    log(f"fleet arm frames per tenant at the end: {frames}")
+    check(same, "a fleet answer differs from its solo engine's")
+    out.update(qps_fleet=qps_f, qps_naive=qps_n, ratio=qps_f / qps_n,
+               misses_fleet=miss_f, misses_naive=miss_n, frames=frames,
+               capacity=cap, budget_bytes=budget,
+               max_resident_bytes=max(samples))
+
+    # -- spill and reopen: a second Fleet, max_live=4 ----------------------
+    fleet = Fleet(str(work / "fleet"), dim=d, n_attr=2, budget_mb=budget_mb,
+                  max_live=FLEET_REOPEN_LIVE, quantize="int8",
+                  rerank_factor=4)
+    n_re = FLEET_CALLS // 4
+    _, ans_r, _ = _fleet_drive(lambda t, q: fleet.query(t, q, knn), tenants,
+                               schedule[:n_re], probes[:n_re])
+    st = fleet.stats()
+    log(f"fleet reopen (max_live {FLEET_REOPEN_LIVE}): {n_re} calls, {st['tenant_opens']} "
+        f"opens, {st['tenant_spills']} spills, answers equal to the first "
+        f"fleet's: {_same_answers(ans_r, ans_f[:n_re])}")
+    check(_same_answers(ans_r, ans_f[:n_re]),
+          "the reopened fleet answers differently")
+    check(st["tenant_spills"] > 0, "the second fleet spilled no tenant")
+    out["reopen"] = dict(calls=n_re, opens=st["tenant_opens"],
+                         spills=st["tenant_spills"])
+
+    # -- health() and /healthz ---------------------------------------------
+    for name in tenants:
+        fleet.set_slo(name, p99_ms=600_000.0, target=0.5)
+    fleet.set_slo(tenants[0], p99_ms=1e-6, target=0.99)
+    h = fleet.health()
+    check(set(h) == {"schema", "status", "tenants", "degraded", "pool",
+                     "daemon_alive", "live_tenants", "noisy_neighbors",
+                     "manifest"}, f"health() keys {sorted(h)}")
+    check(h["degraded"] == [tenants[0]] and h["status"] == "degraded",
+          f"health() verdicts {h['degraded']} {h['status']}")
+    check(h["manifest"] == {"orphans": [], "missing": []},
+          f"manifest drift {h['manifest']}")
+    check(0.0 < h["pool"]["pressure"] <= 1.0, "pool pressure")
+    srv = ExpositionServer.for_target(fleet).start()
+    try:
+        with urllib.request.urlopen(srv.url + "/healthz", timeout=30) as r:
+            doc = json.loads(r.read())
+    finally:
+        srv.stop()
+    check(doc["schema"] == 1 and doc["degraded"] == [tenants[0]]
+          and set(doc["tenants"]) == set(tenants), "/healthz document")
+    log(f"fleet health: status {h['status']}, degraded {h['degraded']}, "
+        f"pressure {h['pool']['pressure']:.4f}, noisy neighbours "
+        f"{h['noisy_neighbors'][:2]}; {tenants[0]}: "
+        f"{h['tenants'][tenants[0]]}; /healthz served the same verdicts")
+    out["health"] = dict(status=h["status"], degraded=h["degraded"],
+                         pressure=h["pool"]["pressure"],
+                         hot_tenant=h["tenants"][tenants[0]])
+
+    # -- a flight capture through the fleet, replayed ----------------------
+    cap_path = str(work / "flight.db")
+    with obs_recorder.recording(cap_path):
+        for i in range(32):
+            fleet.query(tenants[schedule[i]], probes[i], knn)
+    rep = obs_recorder.replay(cap_path, fleet=fleet)
+    log(f"fleet flight: {rep.replayed} replayed, {rep.matched} matched, "
+        f"{rep.events} tenant touches, mismatches {len(rep.mismatches)}")
+    check(rep.ok and rep.replayed == 32 and rep.events == 32,
+          "the fleet capture does not replay bit for bit")
+
+    # -- deficit round robin over two backlogged tenants -------------------
+    # the two tenants alone are live: a drain steps through their whole
+    # queues (a paged build leaves ~160 splits and merges at k = 250)
+    backlogged = [tenants[1], tenants[T - 1]]
+    for name in fleet.live_tenants():
+        if name not in backlogged:
+            fleet.close(name=name)
+    for j, name in enumerate(backlogged):
+        eng = fleet.get(name)
+        rng = np.random.default_rng(100 + j)
+        m = FLEET_BACKLOG_ROWS
+        eng.upsert(np.arange(n, n + m),
+                   probes_by_tenant[name][rng.integers(
+                       0, len(probes_by_tenant[name]), m)]
+                   + rng.normal(size=(m, d)).astype(np.float32),
+                   np.zeros((m, 2), np.float32))
+    depth = {t: fleet.get(t).stats()["scheduler_depth"] for t in backlogged}
+    steps0 = {t: fleet.get(t).scheduler.daemon_steps for t in backlogged}
+    t0 = time.perf_counter()
+    first = fleet.maintain(until_idle=False)
+    one_round = {t: fleet.get(t).scheduler.daemon_steps - steps0[t]
+                 for t in backlogged}
+    total = first + fleet.maintain()
+    drain_s = time.perf_counter() - t0
+    left = {t: fleet.get(t).stats()["scheduler_depth"] for t in backlogged}
+    log(f"fleet DRR: queue depth before {depth}; one round stepped "
+        f"{one_round}; drained in {total} steps, {drain_s:.2f} s; depth "
+        f"after {left}; delta rows after "
+        f"{ {t: fleet.get(t).index.delta.count for t in backlogged} }")
+    check(all(v >= 1 for v in one_round.values()),
+          "a backlogged tenant did not step in the first round")
+    check(all(v == 0 for v in left.values()), "maintain() did not drain")
+    out["drr"] = dict(depth=depth, first_round=one_round, steps=total,
+                      drain_s=drain_s)
+
+    fleet.close()
+    counts = ops.launch_counts()
+    log(f"launches on the fleet path: {counts}")
+    for name in ("sq_scan_topk", "kmeans_assign"):
+        check(counts[name] > 0, f"{name} was not launched on the fleet path")
+    shutil.rmtree(work, ignore_errors=True)
+    out.update(launches=counts, seconds=time.perf_counter() - t_phase)
+    log(f"phase fleet: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded index: 4 ranks on one card
+# ---------------------------------------------------------------------------
+
+SHARDED_RANKS = 4
+SHARDED_TIMEOUT_S = 300
+
+
+def sharded_rank(rank, world, rdv, index, queries, out_dir):
+    """One rank of the sharded phase (spawned): the index arrives by CUDA
+    IPC (torch.multiprocessing shares the parent's device tensors), its
+    quarter is sliced by shard_index, then distributed_query runs with each
+    merge on a gloo group, launches counted from zero; rank 0 then runs
+    executor.run on the whole index and compares."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import executor, topk
+    from repro_torch.core.query import Q as QB
+    from repro_torch.distributed import distributed_query, shard_index
+    from repro_torch.kernels import build, ops
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=rdv, world_size=world,
+                            rank=rank)
+    mesh = init_device_mesh("cpu", (1, world),
+                            mesh_dim_names=("data", "model"))
+    t0 = time.perf_counter()
+    shard = shard_index(index, mesh, device="cuda")
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    build.load("ivf_scan")      # the library loads outside the timed passes
+    q = torch.as_tensor(queries, device="cuda")
+    spec = QB.knn(k=100, n_probe=8)
+    cap = min(shard.k, q.shape[0] * spec.n_probe)
+    res = dict(rank=rank, shard_k=shard.k, shard_s=shard_s,
+               ready_at=time.time(), merges={})
+    # one untimed, uncounted pass: first-call costs (the library product's
+    # handles, the group's first exchanges) stay out of the timed passes
+    distributed_query(shard, q, spec, mesh, local_cap=cap)
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_launch_counts()
+    answers = {}
+    for merge in ("tournament", "allgather"):
+        topk.reset_host_staging()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        rs = distributed_query(shard, q, spec, mesh, local_cap=cap,
+                               merge=merge)
+        answers[merge] = rs.to_numpy()
+        wall = time.perf_counter() - t0
+        staged = topk.host_staging()
+        res["merges"][merge] = dict(
+            wall_ms=wall * 1e3, staged_calls=staged["calls"],
+            staged_bytes=staged["bytes"], staged_ms=staged["seconds"] * 1e3)
+    res["launches"] = ops.launch_counts()
+    # K1's device time on this rank, from a trace of one more pass
+    res["k1_device_ms"] = kernel_device_ms(
+        lambda: distributed_query(shard, q, spec, mesh, local_cap=cap),
+        K1_KERNELS, iters=2)
+    if rank == 0:
+        ref = executor.run(index, queries, spec.quantized(False))
+        r_ids, r_sc = ref.to_numpy()
+        cd = executor._centroid_scores(index.centroids, index.counts,
+                                       index.config.metric,
+                                       q).sort(dim=-1).values
+        gap = ((cd[:, spec.n_probe] - cd[:, spec.n_probe - 1]).abs()
+               <= 1e-6 * cd[:, spec.n_probe - 1].abs()).cpu().numpy()
+        for merge, (ids, sc) in answers.items():
+            rows = np.nonzero((ids != r_ids).any(1)
+                              | (sc.view(np.int32)
+                                 != r_sc.view(np.int32)).any(1))[0]
+            res["merges"][merge].update(
+                ids_equal=bool(np.array_equal(ids, r_ids)),
+                scores_bitwise=bool(np.array_equal(sc.view(np.int32),
+                                                   r_sc.view(np.int32))),
+                differing_rows=rows.tolist(),
+                boundary_ties=[int(r) for r in rows if gap[r]],
+                # diagnosis only: ids in another order among bit-equal
+                # scores (a tie-order difference)
+                score_ties=[int(r) for r in rows if np.array_equal(
+                    sc[r].view(np.int32), r_sc[r].view(np.int32))],
+                max_abs_err=float(np.abs(sc - r_sc)[ids >= 0].max()))
+    with open(out_dir / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_phase(eng, ctx):
+    """The sharded index on a (data 1, model 4) mesh: 4 ranks spawned by
+    torch.multiprocessing, all on the one card, on gloo (host-staged
+    collectives); each gets the main path's resident index by CUDA IPC and
+    slices its quarter (k = 10,000 partitions, the delta holding the 8
+    upserted rows), runs distributed_query over the 512 queries with
+    Q.knn(k=100, n_probe=8) with each merge; rank 0 holds both against
+    executor.run on the whole index (f32): ids equal, scores bit for bit,
+    a difference allowed only where the n-th and (n+1)-th centroid scores
+    tie within 1e-6 relative (reported)."""
+    import torch
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    out_dir = WORK / "sharded"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    idx = eng.index
+    check(idx.k % SHARDED_RANKS == 0, f"k={idx.k} does not split over "
+          f"{SHARDED_RANKS} ranks")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pc = mp.start_processes(
+        sharded_rank, args=(SHARDED_RANKS, f"file://{out_dir}/rdv", idx,
+                            ctx["queries"], out_dir),
+        nprocs=SHARDED_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        while not pc.join(timeout=5):
+            check(time.monotonic() < deadline, "the sharded ranks did not "
+                  f"finish within {SHARDED_TIMEOUT_S} s")
+    finally:
+        for p in pc.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+        torch.cuda.ipc_collect()    # the ranks' handles on the index
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(SHARDED_RANKS)]
+    ready_s = max(r["ready_at"] for r in ranks) - t0
+    out = dict(ranks=SHARDED_RANKS, ready_s=ready_s, per_rank=[])
+    for r in ranks:
+        k1 = r["launches"]["ivf_scan_topk"]
+        log(f"sharded rank {r['rank']}: {r['shard_k']} partitions, sliced "
+            f"in {r['shard_s']:.3f} s; K1 launches {k1}, K1 device "
+            f"{fmt_ms(r['k1_device_ms'])} per query pass; " + "; ".join(
+                f"{m}: {v['wall_ms']:.1f} ms, host-staged collectives "
+                f"{v['staged_calls']} calls / {v['staged_bytes']} B / "
+                f"{v['staged_ms']:.2f} ms" for m, v in r["merges"].items()))
+        check(k1 > 0, f"K1 was not launched on sharded rank {r['rank']}")
+        out["per_rank"].append(dict(
+            rank=r["rank"], launches=r["launches"],
+            k1_device_ms=r["k1_device_ms"], merges=r["merges"]))
+    for merge, v in ranks[0]["merges"].items():
+        other = sorted(set(v["differing_rows"]) - set(v["boundary_ties"]))
+        log(f"sharded {merge} vs executor.run on the whole index: ids equal "
+            f"{v['ids_equal']}, scores bit for bit {v['scores_bitwise']}, "
+            f"max |diff| {v['max_abs_err']:.3e}; rows differing "
+            f"{v['differing_rows']} (probe-boundary ties "
+            f"{v['boundary_ties']}; bit-equal scores in another id order "
+            f"{v['score_ties']})")
+        check(not other, f"sharded {merge}: rows {other} differ from "
+              f"executor.run without a probe-boundary tie")
+    out["launches"] = {k: sum(r["launches"][k] for r in ranks)
+                       for k in ranks[0]["launches"]}
+    log(f"launches on the sharded path (4 ranks): {out['launches']}; ranks "
+        f"ready (spawn, CUDA IPC, rendezvous) in {ready_s:.1f} s")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase sharded: {out['seconds']:.1f} s")
+    return out
+
+
 def profile_batch(label, run):
     """Device busy share of one batch (`run()` runs it to the host), from
     a torch.profiler trace: device kernel time over host wall time."""
@@ -2406,6 +2865,7 @@ def run(args):
     ctx["eng2"].close()
     out["paged_build"], pb = paged_build_phase(ctx)
     out["rebuild"] = rebuild_phase(ctx, pb)
+    out["fleet"] = fleet_phase()
     eng, queries = ctx["eng"], ctx["queries"]
     t0 = time.perf_counter()
     profile_queries(eng, queries)
@@ -2425,7 +2885,9 @@ def run(args):
                "paged_serving": out["paged"]["serving"]["launches"],
                "paged_build": out["paged_build"]["launches"],
                "paged_rebuild": out["rebuild"]["paged"]["launches"],
-               "resident_rebuild": out["rebuild"]["resident"]["launches"]}
+               "resident_rebuild": out["rebuild"]["resident"]["launches"],
+               "sharded": out["sharded"]["launches"],
+               "fleet": out["fleet"]["launches"]}
     kernels = kernels_line(res, out["launches"], by_path)
     log(json.dumps({"main": {k: v for k, v in out.items()
                              if k != "launches"}}))

@@ -214,6 +214,10 @@ class FramePool:
         with self._lock:
             return self._t_resident.get(tid, 0)
 
+    def pinned_count(self, tid: int) -> int:
+        with self._lock:
+            return self._t_pins.get(tid, 0)
+
     def _note_eviction(self, victim_tid: int, evictor_tid: int):
         """Charge one CLOCK eviction to (victim, evictor), with the pool
         lock held, on the fault's miss path only. The matrix folds pairs
@@ -244,6 +248,17 @@ class FramePool:
                 e = self._name_by_tid.get(et, str(et))
                 out.setdefault(v, {})[e] = n
             return out
+
+    def top_evictors(self, n: int = 5) -> List[dict]:
+        """The heaviest (evictor, victim) pairs, most evictions first: the
+        noisy-neighbour shortlist Fleet.health() reports."""
+        with self._lock:
+            pairs = sorted(self._evict_pairs.items(),
+                           key=lambda kv: -kv[1])[:max(n, 0)]
+            return [{"evictor": self._name_by_tid.get(et, str(et)),
+                     "victim": self._name_by_tid.get(vt, str(vt)),
+                     "evictions": c}
+                    for (vt, et), c in pairs]
 
     def stats(self) -> dict:
         """Pool-wide view: geometry, per-tenant frames, eviction matrix."""
@@ -507,6 +522,12 @@ class FramePool:
                               if t == tid])
         self._staged = {k: v for k, v in self._staged.items()
                         if k[0] != tid}
+
+    def invalidate_tenant(self, tid: int):
+        """Drop every frame and staged block of one tenant (a spill, a
+        close or a rebuild)."""
+        with self._lock:
+            self._invalidate_tenant_locked(tid)
 
     # -- per-tenant views ----------------------------------------------------
     def tenant_frames(self, tid: int) -> Dict[int, int]:

@@ -27,9 +27,9 @@ Capture sites (the `site` column tells replay what it is looking at):
     frontdoor.submit  FrontDoor.submit -- vectors + spec at admission
                       (no digest: the Future has not resolved; replay
                       self-checks these by double execution)
-    fleet.get         a fleet's tenant handle touch, no vectors (defined
-                      for the file format; the port has no fleet manager
-                      yet, so nothing records it)
+    fleet.get         Fleet.get -- a tenant handle touch, no vectors
+                      (replay through a fleet drives its live-handle LRU:
+                      opens and spills, as production did)
 
 Bounded: `max_records` caps the file (capture stops, drops counted);
 `sample_every=N` keeps every Nth eligible call (deterministic). Records

@@ -217,6 +217,10 @@ class MicroNN:
         self.traces = obs_trace.TraceRing(capacity=trace_ring_capacity,
                                           slow_ms=slow_query_ms)
         self._c_queries = self.metrics.counter("queries")
+        # a fleet tenant's query-latency histogram: the SLO layer's source
+        # (Fleet.health()); a solo engine keeps the untimed path
+        self._h_query_s = self.metrics.histogram("query_s") \
+            if self.tenant is not None else None
         self.scheduler = MaintenanceScheduler(
             self, max_rows_per_step=max_rows_per_step,
             metrics=self.metrics.scope(component="scheduler"))
@@ -705,11 +709,19 @@ class MicroNN:
         the trace enters the engine's ring (`self.traces`) and rides back
         on `result.trace`. Untraced, no span is allocated -- unless an
         outer trace is active on this thread (the front door's shared
-        fused-call trace), which the layers then record into."""
+        fused-call trace), which the layers then record into. A fleet
+        tenant (`tenant` set) observes each call's latency, up to its
+        answer being ready on the device, in its `query_s` histogram."""
+        t0 = time.perf_counter() if self._h_query_s is not None else 0.0
         if trace and obs_trace.enabled():
             res = self._query_traced(queries, spec)
         else:
             res = self._query_inner(queries, spec)
+        if self._h_query_s is not None:
+            # a tenant's latency is until its answer is ready on the device
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._h_query_s.observe(time.perf_counter() - t0)
         # recording off costs this one global load and branch
         rec = obs_recorder._ACTIVE
         if rec is not None:

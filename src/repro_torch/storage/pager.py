@@ -280,3 +280,7 @@ class PartitionCache:
     def invalidate(self, pids: Sequence[int]):
         """Drop the listed partitions' frames (durable rows changed)."""
         self._pool.invalidate(self._tid, pids)
+
+    def invalidate_all(self):
+        """Drop every frame this tenant holds (a fleet spill)."""
+        self._pool.invalidate_tenant(self._tid)

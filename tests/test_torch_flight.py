@@ -1,17 +1,24 @@
-"""The port's flight recorder and HTTP exposition endpoint
-(repro_torch.obs.recorder / .http), mirroring the engine-site, front-door,
-attribution and HTTP cases of tests/test_flight.py (its fleet cases wait
-for the port of the fleet manager).
+"""The port's flight recorder, SLO health, manifest and HTTP exposition
+endpoint (repro_torch.obs.recorder / .http, repro_torch.fleet.manager),
+mirroring the engine-site, front-door, fleet, attribution, health,
+manifest and HTTP cases of tests/test_flight.py.
 
   * capture -> replay is bit-exact (ids and float32 scores), resident and
     paged, and a store changed between capture and replay is caught;
   * the recorder is bounded and sampled, and drops an unpicklable spec;
   * front-door admissions (digestless) replay by double execution;
-  * eviction attribution stays inside the registry's cardinality guard;
+  * a multi-tenant capture through a Fleet replays with its tenant touches;
+  * eviction attribution names cross-tenant pairs and stays inside the
+    registry's cardinality guard;
+  * Fleet.health() has the reference's schema and flips a tenant to
+    "degraded" exactly when its burn rate exceeds 1; the manifest is the
+    tenant directory and recover() reports orphans and missing stores;
   * /metrics, /healthz, /traces, /slow, /events answer without the engine
     write mutex, and scraping during a live workload changes no answer.
 """
 import json
+import os
+import shutil
 import sqlite3
 import threading
 import urllib.error
@@ -24,7 +31,7 @@ import torch
 from repro.obs import recorder as jrecorder
 from repro_torch.core.query import Q
 from repro_torch.core.types import IVFConfig
-from repro_torch.fleet.pool import FramePool
+from repro_torch.fleet import Fleet, FramePool, TenantSLO
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import recorder as obs_recorder
 from repro_torch.obs.http import ExpositionServer
@@ -61,6 +68,20 @@ def _mk(tmp_path, name, *, paged=False, n=400, seed=0, **eng_kw):
     eng.upsert(np.arange(n), X)
     eng.build()
     return eng, X
+
+
+def _mk_fleet(tmp_path, *, tenants=("a", "b"), n=300, budget_mb=0.5,
+              **kw):
+    cfg = IVFConfig(dim=DIM, target_partition_size=50, kmeans_iters=4)
+    fleet = Fleet(str(tmp_path / "fleet"), dim=DIM, budget_mb=budget_mb,
+                  config=cfg, device="cpu", **kw)
+    X = clustered(n, 3)
+    for t in tenants:
+        eng = fleet.get(t)
+        with eng.session() as s:
+            s.upsert(np.arange(n), X)
+        eng.build()
+    return fleet, X
 
 
 def _get(url, timeout=10):
@@ -129,6 +150,24 @@ def test_replay_detects_divergence(tmp_path):
     eng.close()
 
 
+def test_replay_multi_tenant_fleet(tmp_path):
+    fleet, X = _mk_fleet(tmp_path, tenants=("a", "b", "c"))
+    cap = str(tmp_path / "cap.db")
+    with obs_recorder.recording(cap):
+        for i in range(6):
+            fleet.query("abc"[i % 3], X[i:i + 2], Q.knn(k=4, n_probe=4))
+    recs = obs_recorder.load(cap)
+    # every engine.query capture carries its tenant and digest; the
+    # fleet.get touches interleave as events
+    sites = {r.site for r in recs}
+    assert obs_recorder.SITE_ENGINE in sites
+    assert obs_recorder.SITE_FLEET_GET in sites
+    assert {r.tenant for r in recs} == {"a", "b", "c"}
+    rep = obs_recorder.replay(cap, fleet=fleet, strict=True)
+    assert rep.ok and rep.replayed == 6 and rep.events == 6
+    fleet.close()
+
+
 def test_recorder_bounded_and_sampled(tmp_path):
     eng, X = _mk(tmp_path, "bnd")
     spec = Q.knn(k=3, n_probe=4)
@@ -187,6 +226,34 @@ def test_frontdoor_capture_replays(tmp_path):
 # -- noisy-neighbour attribution ----------------------------------------------
 
 
+def test_eviction_matrix_attributes_cross_tenant(tmp_path):
+    # a budget of ~4 frames: two tenants with disjoint hot sets must evict
+    # each other, and the matrix has to say so, by name
+    fleet, X = _mk_fleet(tmp_path, tenants=("alice", "bob"),
+                         budget_mb=0.02)
+    spec = Q.knn(k=4, n_probe=8)
+    for i in range(12):
+        fleet.query("alice", X[i:i + 1], spec)
+        fleet.query("bob", X[i + 1:i + 2], spec)
+    matrix = fleet.pool.stats()["eviction_matrix"]
+    assert matrix, "no evictions recorded under a 4-frame budget"
+    pairs = {(v, e) for v, row in matrix.items() for e in row}
+    assert any(v != e for v, e in pairs), pairs
+    total = sum(n for row in matrix.values() for n in row.values())
+    top = fleet.pool.top_evictors(3)
+    assert top and top[0]["evictions"] <= total
+    assert set(top[0]) == {"evictor", "victim", "evictions"}
+    assert [t["evictions"] for t in top] == sorted(
+        (t["evictions"] for t in top), reverse=True)
+    assert fleet.health()["noisy_neighbors"] == fleet.pool.top_evictors(5)
+    snap = obs_metrics.default_registry().snapshot()["counters"]
+    attributed = {k: v for k, v in snap.items()
+                  if k.startswith("evictions_attributed")
+                  and ("alice" in k or "bob" in k)}
+    assert sum(attributed.values()) >= total > 0
+    fleet.close()
+
+
 def test_attribution_cardinality_bounded_1000_tenants():
     reg = obs_metrics.default_registry()
     evicted0 = reg.counter("obs_series_evicted").value
@@ -203,6 +270,95 @@ def test_attribution_cardinality_bounded_1000_tenants():
     n_pairs = sum(len(r) for r in st["eviction_matrix"].values())
     assert n_pairs + st["eviction_matrix_overflow"] == 1000
     assert n_pairs <= pool.attr_max_pairs
+
+
+# -- SLO layer + health ------------------------------------------------------
+
+
+def test_health_schema_and_slo_verdicts(tmp_path):
+    fleet, X = _mk_fleet(tmp_path, tenants=("fast", "slow"))
+    for i in range(8):
+        fleet.query("fast", X[i:i + 1], Q.knn(k=3, n_probe=4))
+        fleet.query("slow", X[i:i + 1], Q.knn(k=3, n_probe=4))
+    # a generous objective stays inside its budget; an absurd one is
+    # violated by every query -> burn >> 1 -> degraded
+    fleet.set_slo("fast", p99_ms=600_000.0, target=0.5)
+    fleet.set_slo("slow", p99_ms=1e-6, target=0.99)
+    h = fleet.health()
+    assert set(h) == {"schema", "status", "tenants", "degraded", "pool",
+                      "daemon_alive", "live_tenants", "noisy_neighbors",
+                      "manifest"}
+    assert h["schema"] == 1
+    assert set(h["pool"]) == {"budget_bytes", "resident_bytes", "pressure"}
+    assert set(h["manifest"]) == {"orphans", "missing"}
+    t = h["tenants"]["fast"]
+    assert set(t) == {"verdict", "queries", "p99_ms", "objective_ms",
+                      "target", "violation_fraction", "burn_rate"}
+    assert t["verdict"] == "ok" and t["burn_rate"] <= 1.0
+    assert t["queries"] >= 8
+    s = h["tenants"]["slow"]
+    assert s["verdict"] == "degraded" and s["burn_rate"] > 1.0
+    assert "slow" in h["degraded"] and h["status"] == "degraded"
+    assert 0.0 < h["pool"]["pressure"] <= 1.0
+    assert h["live_tenants"] == ["fast", "slow"] and not h["daemon_alive"]
+    assert json.dumps(h)
+    fleet.close()
+
+
+def test_slo_default_and_override(tmp_path):
+    fleet, _ = _mk_fleet(tmp_path, tenants=("a",),
+                         slo=TenantSLO(p99_ms=123.0, target=0.9))
+    assert fleet.slo_for("a").p99_ms == 123.0
+    fleet.set_slo("a", p99_ms=7.0, target=0.95)
+    assert fleet.slo_for("a") == TenantSLO(p99_ms=7.0, target=0.95)
+    assert fleet.slo_for("other").p99_ms == 123.0   # the default applies
+    assert fleet._tenant_health("ghost")["verdict"] == "ok"   # idle
+    fleet.close()
+
+
+# -- manifest ----------------------------------------------------------------
+
+
+def test_manifest_is_the_tenant_directory(tmp_path):
+    fleet, _ = _mk_fleet(tmp_path, tenants=("a", "b"))
+    assert fleet.tenants() == ["a", "b"]
+    fleet.close()
+    cfg = IVFConfig(dim=DIM, target_partition_size=50, kmeans_iters=4)
+    f2 = Fleet(str(tmp_path / "fleet"), dim=DIM, budget_mb=0.5, config=cfg,
+               device="cpu")
+    assert f2.tenants() == ["a", "b"]
+    f2.drop("a")                # one transaction + file removal
+    assert f2.tenants() == ["b"]
+    assert not os.path.exists(os.path.join(f2.root, "a.db"))
+    f2.close()
+    f3 = Fleet(str(tmp_path / "fleet"), dim=DIM, budget_mb=0.5, config=cfg,
+               device="cpu")
+    assert f3.tenants() == ["b"]
+    f3.close()
+
+
+def test_manifest_reconciles_orphans_and_missing(tmp_path):
+    fleet, _ = _mk_fleet(tmp_path, tenants=("a", "b"))
+    # orphan: a db file the manifest never registered (spill "a" first, so
+    # the copied main file is checkpointed and self-contained)
+    fleet.close(name="a")
+    shutil.copy(os.path.join(fleet.root, "a.db"),
+                os.path.join(fleet.root, "stray.db"))
+    # missing: a registered tenant whose files vanished out of band
+    fleet.close(name="b")
+    for suffix in ("", "-wal", "-shm"):
+        try:
+            os.remove(os.path.join(fleet.root, "b.db" + suffix))
+        except FileNotFoundError:
+            pass
+    drift = fleet.recover()
+    assert drift == {"orphans": ["stray"], "missing": ["b"]}
+    assert fleet.health()["manifest"] == drift
+    assert "stray" not in fleet.tenants()       # the manifest is authority
+    fleet.get("stray")                          # touching adopts it
+    assert "stray" in fleet.tenants()
+    assert fleet.recover()["orphans"] == []
+    fleet.close()
 
 
 # -- exposition endpoint -----------------------------------------------------
@@ -293,3 +449,71 @@ def test_http_live_workload_unperturbed(tmp_path):
         np.testing.assert_array_equal(qi, li)
         np.testing.assert_array_equal(qs, ls)
     eng.close()
+
+
+def test_http_healthz_serves_fleet_health(tmp_path):
+    fleet, X = _mk_fleet(tmp_path, tenants=("a", "b"))
+    fleet.query("a", X[:2], Q.knn(k=3, n_probe=4))
+    srv = ExpositionServer.for_target(fleet).start()
+    try:
+        code, ctype, body = _get(srv.url + "/healthz")
+        doc = json.loads(body)
+        assert code == 200 and ctype.startswith("application/json")
+        assert doc["schema"] == 1 and set(doc["tenants"]) == {"a", "b"}
+        assert doc["tenants"]["a"]["queries"] >= 1
+        code, _, body = _get(srv.url + "/metrics")
+        assert code == 200 and b"tenant_opens" in body
+        # a fleet has no trace ring: the ring endpoints answer empty
+        assert json.loads(_get(srv.url + "/traces")[2]) == []
+    finally:
+        srv.stop()
+        fleet.close()
+
+
+def test_http_live_workload_unperturbed_fleet(tmp_path):
+    """Scrapers on every endpoint during a live fleet workload (daemon on)
+    get well-formed pages, and answers equal the quiet run's bit for bit."""
+    fleet, X = _mk_fleet(tmp_path, tenants=("a", "b"))
+    spec = Q.knn(k=5, n_probe=4)
+    quiet = [fleet.query("a", X[i:i + 2], spec).to_numpy()
+             for i in range(6)]
+    srv = ExpositionServer.for_target(fleet).start()
+    fleet.start_maintenance()
+    stop, scraping = threading.Event(), threading.Event()
+    errs = []
+
+    def scrape():
+        paths = ("/metrics", "/healthz", "/traces", "/events", "/slow")
+        i = 0
+        while not stop.is_set():
+            try:
+                code, _, body = _get(srv.url + paths[i % len(paths)])
+                assert code == 200 and body
+            except Exception as e:      # pragma: no cover
+                errs.append(e)
+                scraping.set()
+                return
+            scraping.set()
+            i += 1
+
+    threads = [threading.Thread(target=scrape) for _ in range(3)]
+    for t in threads:
+        t.start()
+    try:
+        assert scraping.wait(60)        # the load starts under scrapes
+        live = [fleet.query("a", X[i:i + 2], spec).to_numpy()
+                for i in range(6)]
+        for _ in range(4):
+            fleet.query("b", X[:3], spec)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=10)
+        fleet.stop_maintenance()
+        srv.stop()
+    assert not errs, errs
+    for (qi, qs), (li, ls) in zip(quiet, live):
+        np.testing.assert_array_equal(qi, li)
+        np.testing.assert_array_equal(qs, ls)
+    assert fleet.health()["schema"] == 1
+    fleet.close()

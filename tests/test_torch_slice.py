@@ -446,7 +446,8 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(m.name)\n"
         "need = {'repro_torch.obs.metrics', 'repro_torch.obs.trace', "
         "'repro_torch.obs.recorder', 'repro_torch.obs.http', "
-        "'repro_torch.serving.frontdoor'}\n"
+        "'repro_torch.serving.frontdoor', 'repro_torch.fleet.manager', "
+        "'repro_torch.distributed.sharded_index'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick    # build + one launch of each kernel
     python3 chip_smoke.py --kernels-only [--src OTHER/src]
                                      # phase 4 alone, on an in-memory index
+    python3 chip_smoke.py --lm-only  # build + the lm phase alone
 
 Phases (any failure exits non-zero and prints no result line):
   1. device   -- name, count, `nvidia-smi` name and power limit.
@@ -76,6 +77,27 @@ Phases (any failure exits non-zero and prints no result line):
                  answering the same; upserts into 2 tenants drained by the
                  deficit round robin; health() and /healthz; a flight
                  capture through the fleet replayed bit for bit.
+     lm       -- (last, after phase 4, the 1M engine and the fleet freed)
+                 the LM serving path at llama3-8b's full width and depth
+                 (32 layers, d 4096, vocab 128,256, bf16, random weights
+                 from seed 0): a kNN-LM datastore of 262,144 x 4,096 rows
+                 with launch/serve.build_rag_datastore's recipe (k =
+                 4,096; the padded layout projected for the recipe's
+                 Gaussian rows and the mixture first, outside the counted
+                 path; the build's own K3 launches read just after it), an
+                 int8 twin over the same partitions; ServeEngine (8 slots,
+                 s_max 1,024, RAG k 16, n_probe 8, lam 0.25) over 16
+                 TokenStream prompts of 32 tokens, 32 new tokens each,
+                 twice (tokens bit for bit); 64 recorded hidden states: K1
+                 through executor.run against the plain scan, knn_logits of
+                 both routes bit for bit, recall@16 of the f32 and int8
+                 tiers against Q.exact, and Q.exact against a numpy brute
+                 force; an upserted hidden state decides the next token at
+                 lam 0.9 and shows in delta_live; lam -> 0 is the LM; the
+                 three kernels at the RAG shapes against their plain
+                 versions, timed (K1 / K2 on stored rows with noise and on
+                 a decode step's hidden states); decode == forward and
+                 prefill == step-by-step at full width on 2 float32 layers.
      Each path's kernel launch counters are zeroed just before it and read
      just after; every kernel the path runs must show launches.
   4. kernels  -- each kernel against its plain PyTorch version on the card
@@ -308,6 +330,30 @@ def k2_bound(part_ids, qsel, valid, n_q, d, p_max, k_out, keep=None,
          + (n_q * n if qsel is not None else 0) + n_q * k_out * 8)
     o = 2.0 * (2 * d) * pair_rows
     return b / HBM_BYTES_PER_S, o / INT8_OPS
+
+
+def k3_bound(rows, k, d):
+    """(bound seconds by bytes, by operations) of kmeans_assign: the batch,
+    centroids and penalty read once, assignments and costs written once;
+    2d flops per (row, centroid) pair."""
+    b = ((rows + k) * d * 4 + k * 4 + rows * 8) / HBM_BYTES_PER_S
+    o = 2.0 * rows * k * d / F32_FLOPS
+    return b, o
+
+
+def refuse_below_bound(row, what):
+    """A trace's device time below the row's own bound cannot be a
+    measurement (the trace lost or merged kernels): the reading is kept as
+    device_ms_refused and device_ms becomes None, "not measured". Walks
+    the row's nested rows."""
+    for key, sub in list(row.items()):
+        if isinstance(sub, dict):
+            refuse_below_bound(sub, f"{what} {key}")
+    t = row.get("device_ms")
+    if t is not None and "bound_ms" in row and t < row["bound_ms"]:
+        log(f"  {what}: device time {t:.4f} ms lies below its bound "
+            f"{row['bound_ms']:.4f} ms: not measured")
+        row["device_ms_refused"], row["device_ms"] = t, None
 
 
 def bound_of(b, o):
@@ -741,11 +787,6 @@ def check_kernels(idx, cases, batch, timed):
             - 2.0 * f32_matmul(batch, cents.T)
         return torch.argmin(dist, dim=1)
 
-    def k3_bound(rows):
-        b = ((rows + k) * d * 4 + k * 4 + rows * 8) / HBM_BYTES_PER_S
-        o = 2.0 * rows * k * d / F32_FLOPS
-        return b, o
-
     # the build's last batch of 1M rows is ragged: 1,000,000 % 4096 = 576.
     # Each shape also as K3's kernels' device time in a profiler trace.
     for rows in (576, s_rows):
@@ -756,7 +797,7 @@ def check_kernels(idx, cases, batch, timed):
             lambda: kmeans_assign.kmeans_assign(xb, cents, pen0), K3_KERNELS)
         log(f"  time kmeans_assign [s={rows} k={k} d={d}]: kernel {t_w:.4f}"
             f" ms, its kernels' device time {fmt_ms(t_dev)}, bound "
-            f"{1e3 * max(k3_bound(rows)):.4f} ms")
+            f"{1e3 * max(k3_bound(rows, k, d)):.4f} ms")
         if rows == s_rows:
             res["kmeans_assign"]["device_ms"] = t_dev
     k3 = res["kmeans_assign"]
@@ -765,7 +806,7 @@ def check_kernels(idx, cases, batch, timed):
     k3["plain_ms"] = cuda_ms(lambda: kmeans_assign.kmeans_assign_plain(
         batch, cents, pen0))
     k3["library_ms"] = cuda_ms(lib_k3)
-    b3, o3 = k3_bound(s_rows)
+    b3, o3 = k3_bound(s_rows, k, d)
     k3["bound_ms"] = 1e3 * max(b3, o3)
     k3["bound_by"] = "bytes" if b3 >= o3 else "operations"
     k3["shape"] = f"s={s_rows} k={k} d={d}"
@@ -2412,10 +2453,21 @@ def sharded_rank(rank, world, rdv, index, queries, out_dir):
             wall_ms=wall * 1e3, staged_calls=staged["calls"],
             staged_bytes=staged["bytes"], staged_ms=staged["seconds"] * 1e3)
     res["launches"] = ops.launch_counts()
-    # K1's device time on this rank, from a trace of one more pass
-    res["k1_device_ms"] = kernel_device_ms(
-        lambda: distributed_query(shard, q, spec, mesh, local_cap=cap),
-        K1_KERNELS, iters=2)
+    # K1's device time on this rank, from a trace of one more pass, whose
+    # scan inputs are kept for rank 0's kernel row
+    seen = {}
+    fused = executor.fused_scan
+
+    def capture(*args, **kw):
+        seen.update(args=args, kw=kw)
+        return fused(*args, **kw)
+    executor.fused_scan = capture
+    try:
+        res["k1_device_ms"] = kernel_device_ms(
+            lambda: distributed_query(shard, q, spec, mesh, local_cap=cap),
+            K1_KERNELS, iters=2)
+    finally:
+        executor.fused_scan = fused
     if rank == 0:
         ref = executor.run(index, queries, spec.quantized(False))
         r_ids, r_sc = ref.to_numpy()
@@ -2439,10 +2491,38 @@ def sharded_rank(rank, world, rdv, index, queries, out_dir):
                 score_ties=[int(r) for r in rows if np.array_equal(
                     sc[r].view(np.int32), r_sc[r].view(np.int32))],
                 max_abs_err=float(np.abs(sc - r_sc)[ids >= 0].max()))
+        res["k1_row"] = sharded_k1_row(index, seen)
     with open(out_dir / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def sharded_k1_row(index, seen):
+    """K1 on rank 0's partitions at the sharded pass's own scan inputs
+    (`seen`: the fused_scan call of one pass), against its plain version,
+    then timed beside it, the library yardstick and the bound."""
+    import torch
+    from repro_torch.kernels import ivf_scan
+    q, vec, valid, ids, part_ids, k_out = seen["args"]
+    qsel, metric = seen["kw"]["qsel"], seen["kw"]["metric"]
+    args = (q, vec, valid, ids, part_ids, k_out, metric, qsel, None)
+    v2_max = float(torch.sum(index.vectors ** 2, -1).max())
+    err, ok = compare(ivf_scan.ivf_scan_plain(*args),
+                      ivf_scan.ivf_scan_topk(*args), topk_tol(q, v2_max),
+                      f"ivf_scan sharded rank 0 Q={q.shape[0]}")
+    kern = lambda: ivf_scan.ivf_scan_topk(*args)  # noqa: E731
+    n_q, d, p_max = q.shape[0], vec.shape[-1], vec.shape[1]
+    return dict(
+        shape=f"Q={n_q} n={part_ids.numel()} (rank 0 of "
+              f"{SHARDED_RANKS}, {vec.shape[0]} partitions) p_max={p_max} "
+              f"k_out={k_out}",
+        max_abs_err=err, ids_equal=ok, ms=cuda_ms(kern, reps=5),
+        device_ms=kernel_device_ms(kern, K1_KERNELS),
+        plain_ms=cuda_ms(lambda: ivf_scan.ivf_scan_plain(*args), iters=3),
+        library_ms=cuda_ms(lambda: lib_scan_f32(q, vec, valid, part_ids,
+                                                qsel, k_out), iters=3),
+        **bound_of(*k1_bound(part_ids, qsel, valid, n_q, d, p_max, k_out)))
 
 
 def sharded_phase(eng, ctx):
@@ -2507,6 +2587,13 @@ def sharded_phase(eng, ctx):
             f"{v['score_ties']})")
         check(not other, f"sharded {merge}: rows {other} differ from "
               f"executor.run without a probe-boundary tie")
+    row = out["k1_row"] = ranks[0]["k1_row"]
+    log(f"  time ivf_scan_topk sharded [{row['shape']}]: kernel "
+        f"{row['ms']:.4f} ms, device {fmt_ms(row['device_ms'])}, plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    check(row["ids_equal"], "K1 disagrees with its plain version on the "
+          "sharded route")
     out["launches"] = {k: sum(r["launches"][k] for r in ranks)
                        for k in ranks[0]["launches"]}
     log(f"launches on the sharded path (4 ranks): {out['launches']}; ranks "
@@ -2772,11 +2859,693 @@ def check_path_routes(res, ctx, pools):
     log(f"phase kernels (slice routes): {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the lm phase: llama3-8b at full width serving with MicroNN retrieval
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "llama3-8b"
+LM_ENTRIES = 262_144         # datastore rows (a kNN-LM store holds 1e8+)
+LM_CLUSTERS = 4_096          # components of the clustered mixture
+LM_MINIBATCH = 16_384        # the build's k-means mini-batch (lm_datastore)
+LM_PADDED_LIMIT = 24e9       # bytes of padded f32 tier the phase accepts
+LM_SLOTS, LM_S_MAX = 8, 1024
+LM_REQUESTS, LM_PROMPT, LM_NEW = 16, 32, 32
+LM_REC_STEPS = 8             # RAG steps whose hidden states are recorded
+LM_CHECK_LAYERS, LM_CHECK_PROMPT = 2, 64
+LM_FRESH_TOKEN = 4242
+
+
+def lm_log(msg):
+    log(f"lm {msg}  [{CARD}]")
+
+
+def lm_layout(counts, d, pad_to=8):
+    """(k, p_max, largest, median, padded f32 bytes) of a partitioning."""
+    import numpy as np
+    counts = np.asarray(counts)
+    largest = int(counts.max())
+    p_max = max(pad_to, -(-largest // pad_to) * pad_to)
+    return (len(counts), p_max, largest, float(np.median(counts)),
+            len(counts) * p_max * d * 4)
+
+
+def lm_datastore(cfg, dev):
+    """The datastore at LM_ENTRIES x d_model, with the recipe of
+    launch/serve.build_rag_datastore (~64 rows a partition, 20 k-means
+    iterations, delta 256, a random next token per row and a spare id).
+    The recipe's isotropic Gaussians show hubness at d = 4096 (averaged
+    centroids have small norms and draw rows), so its padded [k, p_max, d]
+    tier is projected first: the recipe's rows with its k-means
+    (mini-batch 256), then the clustered mixture (data/synthetic.mixture,
+    LM_CLUSTERS components) with it; the first under LM_PADDED_LIMIT is
+    built, else the mixture with LM_MINIBATCH rows a k-means step (20 x
+    16,384 = 1.25 passes over the rows, where 20 x 256 leaves most
+    centroids a seed row or the mean of a few unrelated rows). The launch
+    counts are zeroed after the projections, just before the build:
+    from there on they count the lm path alone.
+    -> (datastore, chosen rows on the host, summary)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import ivf, kmeans
+    from repro_torch.core.rag import RagDatastore
+    from repro_torch.core.types import IVFConfig
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    d = cfg.d_model
+    g = torch.Generator(device=dev).manual_seed(1)
+    base = IVFConfig(dim=d, target_partition_size=64, kmeans_iters=20,
+                     delta_capacity=256)
+    candidates = [
+        ("gaussian", lambda: torch.randn((LM_ENTRIES, d), generator=g,
+                                         device=dev), base.minibatch_size),
+        ("mixture", lambda: synthetic.mixture(LM_ENTRIES, d, LM_CLUSTERS,
+                                              seed=1, device=dev),
+         base.minibatch_size),
+        ("mixture", None, LM_MINIBATCH)]
+    out = dict(projections=[])
+    X = None
+    for i, (rows, make, mb) in enumerate(candidates):
+        if make is not None:
+            X = make().cpu().numpy()
+        if i == len(candidates) - 1:
+            break
+        t0 = time.perf_counter()
+        _, _, assign = kmeans.fit_in_memory(
+            X, dataclasses.replace(base, minibatch_size=mb), device=dev)
+        lay = lm_layout(np.bincount(assign, minlength=LM_ENTRIES // 64), d)
+        out["projections"].append(dict(rows=rows, minibatch=mb, k=lay[0],
+                                       p_max=lay[1], largest=lay[2],
+                                       median=lay[3], padded_bytes=lay[4]))
+        lm_log(f"datastore projection ({rows} rows, k-means mini-batch "
+               f"{mb}): k={lay[0]} p_max={lay[1]} largest {lay[2]} median "
+               f"{lay[3]:.0f} padded f32 tier {lay[4] / 1e9:.2f} GB "
+               f"({time.perf_counter() - t0:.1f} s)")
+        if lay[4] <= LM_PADDED_LIMIT:
+            break
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()          # the lm path starts here
+    t0 = time.perf_counter()
+    index = ivf.build_index(X, cfg=dataclasses.replace(base,
+                                                       minibatch_size=mb),
+                            device=dev)
+    torch.cuda.synchronize()
+    out["k3_launches"] = ops.launch_counts()["kmeans_assign"]
+    rng = np.random.default_rng(1)
+    ds = RagDatastore(index=index, next_token=torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, LM_ENTRIES + 1), dtype=torch.int32,
+        device=dev))
+    lay = lm_layout(index.counts.cpu().numpy(), d)
+    out.update(rows=rows, minibatch=mb, build_s=time.perf_counter() - t0,
+               k=index.k, p_max=index.p_max, largest=lay[2], median=lay[3],
+               padded_bytes=index.k * index.p_max * d * 4)
+    lm_log(f"datastore built from {rows} rows, k-means mini-batch {mb}: "
+           f"{LM_ENTRIES} x {d} in {out['build_s']:.1f} s with "
+           f"{out['k3_launches']} K3 launches; k={index.k} p_max="
+           f"{index.p_max} largest {lay[2]} median {lay[3]:.0f} padded f32 "
+           f"tier {out['padded_bytes'] / 1e9:.2f} GB")
+    check(out["k3_launches"] > 0, "the datastore build launched no K3")
+    check(out["padded_bytes"] <= LM_PADDED_LIMIT,
+          f"the padded f32 tier ({out['padded_bytes']} B) exceeds "
+          f"{LM_PADDED_LIMIT:.0f} B")
+    return ds, X, out
+
+
+def lm_int8_twin(index, rerank_factor=4):
+    """The int8 tier over the same partitions: the quantizer trained on the
+    stored rows, codes (zero on padding, as the build packs them) and
+    norms beside the f32 tensors it shares (the rerank reads them)."""
+    import dataclasses
+    import torch
+    from repro_torch.core import quantize
+    from repro_torch.core.types import DeltaStore
+    qstats = quantize.train(index.vectors[index.valid])
+    codes = torch.zeros(index.vectors.shape, dtype=torch.int8,
+                        device=index.device)
+    for a in range(0, index.k, 256):
+        c = quantize.encode(qstats, index.vectors[a:a + 256])
+        codes[a:a + 256] = torch.where(index.valid[a:a + 256, :, None], c,
+                                       torch.zeros((), dtype=torch.int8,
+                                                   device=c.device))
+    return dataclasses.replace(
+        index, codes=codes, qstats=qstats,
+        code_norms=quantize.row_norms(qstats, codes),
+        delta=DeltaStore.empty(index.delta.capacity, index.dim,
+                               index.n_attr, quantized=True,
+                               device=index.device),
+        config=dataclasses.replace(index.config, quantize="int8",
+                                   rerank_factor=rerank_factor))
+
+
+def lm_serve(cfg, model, ds, prompts):
+    """One ServeEngine (LM_SLOTS slots, s_max LM_S_MAX, RAG with the
+    default RagConfig) over the prompts, max_new_tokens LM_NEW each: the
+    requests, the hidden states and LM logits of the first LM_REC_STEPS
+    RAG steps, and times (admission = token-by-token prefill; a step's
+    time is step() without its admission)."""
+    import torch
+    from repro_torch.core.rag import RagConfig
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.serving import engine as engine_mod
+    eng = ServeEngine(cfg, model, slots=LM_SLOTS, s_max=LM_S_MAX, rag=ds,
+                      rag_cfg=RagConfig())
+    reqs = [Request(uid=i, prompt=list(map(int, p)), max_new_tokens=LM_NEW)
+            for i, p in enumerate(prompts)]
+    admit = [0.0]
+    rec = dict(hidden=[], logits=[], finite=True)
+    plain_admit, plain_rag = eng._admit, engine_mod.rag_decode_logits
+
+    def timed_admit():
+        t0 = time.perf_counter()
+        plain_admit()
+        torch.cuda.synchronize()
+        admit[0] += time.perf_counter() - t0
+
+    def recording_rag(ds_, logits, hidden, rcfg, spec=None):
+        out = plain_rag(ds_, logits, hidden, rcfg, spec=spec)
+        if len(rec["hidden"]) < LM_REC_STEPS:
+            rec["hidden"].append(hidden.float().clone())
+            rec["logits"].append(logits.float().clone())
+        rec["finite"] &= bool(torch.isfinite(logits).all()) and bool(
+            torch.isfinite(out).all())
+        return out
+
+    eng._admit = timed_admit
+    engine_mod.rag_decode_logits = recording_rag
+    step_ms = []
+    try:
+        for r in reqs:
+            eng.submit(r)
+        t_all = time.perf_counter()
+        while not all(r.done for r in reqs):
+            check(len(step_ms) < 10 * LM_REQUESTS * LM_NEW,
+                  "the engine does not finish its requests")
+            a0, t0 = admit[0], time.perf_counter()
+            eng.step()
+            step_ms.append((time.perf_counter() - t0 - (admit[0] - a0))
+                           * 1e3)
+        wall = time.perf_counter() - t_all
+    finally:
+        engine_mod.rag_decode_logits = plain_rag
+    return eng, reqs, rec, dict(wall_s=wall, prefill_s=admit[0],
+                                step_ms=step_ms)
+
+
+def lm_decode_bound_ms(cfg, model, pos):
+    """The least time of one decode step at batch LM_SLOTS and position
+    `pos`, by bytes: every parameter read once but the embedding table
+    (LM_SLOTS rows of it), the KV entries up to pos read and the new ones
+    written. Also every parameter's bytes alone."""
+    emb = model.embed.table
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    kv = (cfg.num_layers * 2 * LM_SLOTS * (pos + 2) * cfg.num_kv_heads
+          * cfg.head_dim * 2)
+    need = params - emb.numel() * emb.element_size() \
+        + LM_SLOTS * cfg.d_model * emb.element_size() + kv
+    return 1e3 * need / HBM_BYTES_PER_S, 1e3 * params / HBM_BYTES_PER_S
+
+
+def lm_decode_matches_forward(cfg, dev):
+    """dataclasses.replace(cfg, num_layers=2, dtype="float32") at full
+    width: decode_step logits at each of LM_CHECK_PROMPT positions against
+    forward's within 1e-3 x max |logit|, and prefill's cache against the
+    step-by-step cache (float32 products, TF32 off)."""
+    import dataclasses
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_model, prefill)
+    t0 = time.perf_counter()
+    c2 = dataclasses.replace(cfg, num_layers=LM_CHECK_LAYERS,
+                             dtype="float32")
+    m2 = init_model(c2, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    tok = torch.as_tensor(next(TokenStream(
+        vocab=cfg.vocab_size, batch=1, seq=LM_CHECK_PROMPT,
+        seed=0).iter_from(0))["tokens"], device=dev)
+    ref = forward(c2, m2, {"tokens": tok})[0][0]
+    tol = 1e-3 * float(ref.abs().max())
+    cache = init_cache(c2, 1, LM_CHECK_PROMPT, dtype=torch.float32,
+                       device=dev)
+    err = 0.0
+    for t in range(LM_CHECK_PROMPT):
+        lg, _, cache = decode_step(c2, m2, cache, tok[:, t:t + 1], t)
+        err = max(err, float((lg[0] - ref[t]).abs().max()))
+    _, _, pc = prefill(c2, m2, {"tokens": tok}, LM_CHECK_PROMPT)
+    cerr, cmax, pos_eq = 0.0, 0.0, True
+    for key in pc:
+        pos_eq &= torch.equal(pc[key]["pos"], cache[key]["pos"])
+        for kv in ("k", "v"):
+            cerr = max(cerr, float((pc[key][kv] - cache[key][kv]).abs()
+                                   .max()))
+            cmax = max(cmax, float(cache[key][kv].abs().max()))
+    lm_log(f"decode == forward ({LM_CHECK_LAYERS} layers, float32, d "
+           f"{c2.d_model}, vocab {c2.vocab_size}, {LM_CHECK_PROMPT} "
+           f"positions): max |logit diff| {err:.3e} (limit {tol:.3e}); "
+           f"prefill cache vs step-by-step max |diff| {cerr:.3e} of max "
+           f"|k,v| {cmax:.3e}, positions equal {pos_eq} "
+           f"({time.perf_counter() - t0:.1f} s)")
+    check(err <= tol, f"decode_step differs from forward by {err:.3e}")
+    check(pos_eq and cerr <= 1e-3 * cmax,
+          f"prefill's cache differs from the step-by-step cache by {cerr}")
+    return dict(max_logit_err=err, limit=tol, cache_err=cerr)
+
+
+def lm_scan_rows(ds, twin, Q, plain=True):
+    """K1 (k_out 16) and K2 (k_out 64, rerank_factor 4) on the probes of
+    Q at n_probe 8, each against its plain version on the same inputs,
+    timed beside its bound and, with `plain`, the plain version and the
+    library yardstick."""
+    import torch
+    from repro_torch.core import executor, quantize
+    from repro_torch.kernels import ivf_scan, sq_scan
+    idx = ds.index
+    vec, valid, ids = idx.vectors, idx.valid, idx.ids
+    d, p_max = idx.dim, idx.p_max
+    v2_max = float(torch.sum(vec * vec, -1).max())
+    part_ids, qsel = executor._probe_union(idx.centroids, idx.counts, "l2",
+                                           Q, 8)
+    n_q = Q.shape[0]
+    scanned = scan_work(part_ids, qsel, valid, n_q)[2]
+    shape = f"Q={n_q} n={part_ids.numel()} p_max={p_max} d={d}"
+    args = (Q, vec, valid, ids, part_ids, 16, "l2", qsel, None)
+    err, ok = compare(ivf_scan.ivf_scan_plain(*args),
+                      ivf_scan.ivf_scan_topk(*args), topk_tol(Q, v2_max),
+                      f"lm ivf_scan {shape} k_out=16")
+    k1 = lambda: ivf_scan.ivf_scan_topk(*args)  # noqa: E731
+    r1 = dict(shape=f"{shape} k_out=16", rows_scanned=scanned,
+              max_abs_err=err, ids_equal=ok, ms=cuda_ms(k1, reps=5),
+              device_ms=kernel_device_ms(k1, K1_KERNELS),
+              **bound_of(*k1_bound(part_ids, qsel, valid, n_q, d, p_max,
+                                   16)))
+    st = twin.qstats
+    q_i8, alpha, beta = quantize.fold_queries(st, Q)
+    sargs = (q_i8, alpha, beta, st.lo, st.scale, twin.codes, valid, None,
+             part_ids, 64, "l2", qsel, None, twin.code_norms)
+    ref, got = sq_scan.sq_scan_plain(*sargs), sq_scan.sq_scan_folded(*sargs)
+    same = same_bits(ref, got)
+    err2 = float((ref[0] - got[0]).abs().max())
+    log(f"  lm sq_scan {shape} k_out=64: bit for bit {same} "
+        f"(max_abs_err={err2:.3e})")
+    k2 = lambda: sq_scan.sq_scan_folded(*sargs)  # noqa: E731
+    r2 = dict(shape=f"{shape} k_out=64", rows_scanned=scanned,
+              max_abs_err=err2, ids_equal=same, ms=cuda_ms(k2, reps=5),
+              device_ms=kernel_device_ms(k2, K2_KERNELS),
+              **bound_of(*k2_bound(part_ids, qsel, valid, n_q, d, p_max,
+                                   64)))
+    if plain:
+        r1.update(
+            plain_ms=cuda_ms(lambda: ivf_scan.ivf_scan_plain(*args),
+                             iters=3),
+            library_ms=cuda_ms(lambda: lib_scan_f32(Q, vec, valid, part_ids,
+                                                    qsel, 16), iters=3))
+        r2.update(
+            plain_ms=cuda_ms(lambda: sq_scan.sq_scan_plain(*sargs), iters=3),
+            library_ms=cuda_ms(lambda: lib_scan_int8(
+                q_i8, alpha, beta, twin.codes, twin.code_norms, valid,
+                part_ids, qsel, 64), iters=3))
+    return r1, r2
+
+
+def lm_kernel_rows(ds, twin, Q8, H8, rows, build_rows):
+    """K1, K2 and K3 at the RAG shapes, each against its plain version on
+    the same inputs, then timed beside it, the library yardstick and the
+    bound. K1 Q=8, n_probe 8, k_out 16 and K2 the same queries, k_out 64,
+    on Q8: stored rows with noise, queries from the store's own
+    distribution; the same two on H8, one served decode step's hidden
+    states (off the store's distribution: their probes reach partitions of
+    few rows), as each row's `decode_probe`. K3 the build's final pass,
+    s = 4,096 rows against the k centroids, and at the build's batch of
+    `build_rows` rows (`build_batch`)."""
+    import torch
+    from repro_torch.core.types import f32_matmul
+    from repro_torch.kernels import kmeans_assign
+    rows_out = {}
+    rows_out["ivf_scan_topk"], rows_out["sq_scan_topk"] = lm_scan_rows(
+        ds, twin, Q8)
+    dec = lm_scan_rows(ds, twin, H8, plain=False)
+    rows_out["ivf_scan_topk"]["decode_probe"] = dec[0]
+    rows_out["sq_scan_topk"]["decode_probe"] = dec[1]
+
+    cents = ds.index.centroids
+    k, d = cents.shape
+    batch = torch.as_tensor(rows[:4096], device=cents.device)
+    s = batch.shape[0]
+    pen0 = torch.zeros((k,), dtype=torch.float32, device=cents.device)
+    ra, rc = kmeans_assign.kmeans_assign_plain(batch, cents, pen0)
+    ga, gc = kmeans_assign.kmeans_assign(batch, cents, pen0)
+    torch.cuda.synchronize()
+    ctol = 1e-5 * (torch.sum(batch * batch, -1)
+                   + float(torch.sum(cents * cents, -1).max()))
+    x64, c64 = batch.double(), cents.double()
+
+    def exact(a):
+        return ((x64 - c64[a.long()]) ** 2).sum(-1)
+    ok3 = bool(((rc - gc).abs() <= ctol).all()) and bool(
+        ((exact(ra) - exact(ga)).abs() <= ctol).all())
+    err3 = float((rc - gc).abs().max())
+    log(f"  lm kmeans_assign s={s} k={k} d={d}: max_abs_err={err3:.3e} "
+        f"ids_equal={ok3} differing_args={int((ra != ga).sum())}")
+    # the build's final pass streams batches of max(minibatch, 4096) rows
+    # (kmeans.fit_in_memory)
+    big = torch.as_tensor(rows[:build_rows], device=cents.device)
+    k3 = lambda: kmeans_assign.kmeans_assign(batch, cents, pen0)  # noqa
+    rows_out["kmeans_assign"] = dict(
+        shape=f"s={s} k={k} d={d}", max_abs_err=err3, ids_equal=ok3,
+        ms=cuda_ms(k3, reps=5), device_ms=kernel_device_ms(k3, K3_KERNELS),
+        plain_ms=cuda_ms(lambda: kmeans_assign.kmeans_assign_plain(
+            batch, cents, pen0), iters=3),
+        library_ms=cuda_ms(lambda: torch.argmin(
+            torch.sum(cents * cents, -1)[None, :]
+            - 2.0 * f32_matmul(batch, cents.T), dim=1), iters=3),
+        **bound_of(*k3_bound(s, k, d)),
+        build_batch=dict(
+            rows=big.shape[0], device_ms=kernel_device_ms(
+                lambda: kmeans_assign.kmeans_assign(big, cents, pen0),
+                K3_KERNELS, iters=3),
+            **bound_of(*k3_bound(big.shape[0], k, d))))
+    for name, r in rows_out.items():
+        refuse_below_bound(r, f"lm {name}")
+        lm_log(f"time {name} RAG shape [{r['shape']}]: kernel "
+               f"{r['ms']:.4f} ms, device {fmt_ms(r['device_ms'])}, plain "
+               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        check(r["ids_equal"], f"{name} disagrees with its plain version at "
+              f"the RAG shape")
+        if "decode_probe" in r:
+            e = r["decode_probe"]
+            lm_log(f"time {name} on a decode step's hidden states "
+                   f"[{e['shape']}, {e['rows_scanned']:.0f} rows scanned "
+                   f"vs {r['rows_scanned']:.0f} for stored rows]: kernel "
+                   f"{e['ms']:.4f} ms, device {fmt_ms(e['device_ms'])}, "
+                   f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+            check(e["ids_equal"], f"{name} disagrees with its plain version "
+                  f"on the decode step's hidden states")
+    return rows_out
+
+
+def lm_witness(X, H, exact, k1_ids, index, rcfg, chunk=16_384):
+    """An independent brute force on the host (numpy, float64) over the
+    stored rows X (row i is id i) for the recorded hidden states H: it
+    holds Q.exact's neighbours, and so the recall of the served probes,
+    to an answer that shares no code with the port. Also what the decode
+    probes scan and how far H lies from the store."""
+    import numpy as np
+    from repro_torch.core import executor
+    t0 = time.perf_counter()
+    h = H.detach().cpu().numpy().astype(np.float64)
+    scores = np.empty((X.shape[0], h.shape[0]))
+    x2 = np.empty(X.shape[0])
+    for a in range(0, X.shape[0], chunk):
+        xc = X[a:a + chunk].astype(np.float64)
+        x2[a:a + chunk] = (xc * xc).sum(1)
+        scores[a:a + chunk] = x2[a:a + chunk, None] - 2.0 * (xc @ h.T)
+    top = np.argsort(scores, axis=0, kind="stable")[:rcfg.k].T   # [Q, k]
+    nn_dist = np.sqrt(np.maximum(
+        scores[top[:, 0], np.arange(h.shape[0])] + (h * h).sum(1), 0.0))
+    part_ids, qsel = executor._probe_union(index.centroids, index.counts,
+                                           "l2", H, rcfg.n_probe)
+    pairs = scan_work(part_ids, qsel, index.valid, H.shape[0])[2]
+    w = dict(exact_vs_witness=_recall(exact, top),
+             k1_vs_witness=_recall(k1_ids, top),
+             rows_scanned_per_query=pairs / H.shape[0],
+             mean_norm_hidden=float(np.linalg.norm(h, axis=1).mean()),
+             mean_norm_stored=float(np.sqrt(x2).mean()),
+             mean_nn_dist=float(nn_dist.mean()),
+             seconds=time.perf_counter() - t0)
+    lm_log(f"witness (numpy float64 brute force over the {X.shape[0]} "
+           f"stored rows, {w['seconds']:.1f} s): Q.exact's top-{rcfg.k} "
+           f"against it {w['exact_vs_witness']:.4f}, K1 at n_probe "
+           f"{rcfg.n_probe} against it {w['k1_vs_witness']:.4f}; the decode "
+           f"probes scan {w['rows_scanned_per_query']:.1f} rows a query "
+           f"(the store has {X.shape[0] / index.k:.1f} a partition); mean "
+           f"|h| {w['mean_norm_hidden']:.2f}, mean |x| "
+           f"{w['mean_norm_stored']:.2f}, mean distance to the nearest "
+           f"stored row {w['mean_nn_dist']:.2f}")
+    check(w["exact_vs_witness"] >= 0.99, "Q.exact disagrees with the "
+          "brute force on the recorded hidden states")
+    return w
+
+
+def _recall(got, want):
+    import numpy as np
+    return float(np.mean([len(set(a[a >= 0]) & set(b[b >= 0])) / len(b)
+                          for a, b in zip(got, want)]))
+
+
+def lm_phase():
+    """The LM serving path (ROADMAP Queue A 16a-i) on the card; see the
+    module docstring. -> (summary, kernel rows at the RAG shapes)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import delta, executor
+    from repro_torch.core.query import Q as QB
+    from repro_torch.core.rag import (RagConfig, RagDatastore, interpolate,
+                                      knn_logits, rag_decode_logits)
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ivf_scan, ops
+    from repro_torch.models import init_model
+    from repro_torch.testing import compare_topk
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(LM_ARCH).config
+    lm_log(f"config {cfg.name}: {cfg.num_layers} layers, d_model "
+           f"{cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} KV), "
+           f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+           f"{cfg.vocab_size}, {cfg.dtype}, rope theta {cfg.rope_theta}, "
+           f"{cfg.param_count()} parameters")
+    out = {}
+
+    # -- the datastore (K3 in its build; the launch counts are zeroed just
+    # before it) and its int8 twin ------------------------------------------
+    ds, X, out["datastore"] = lm_datastore(cfg, dev)
+    t0 = time.perf_counter()
+    twin = lm_int8_twin(ds.index)
+    torch.cuda.synchronize()
+    out["twin_s"] = time.perf_counter() - t0
+    lm_log(f"int8 twin (rerank_factor 4) over the same partitions in "
+           f"{out['twin_s']:.1f} s")
+
+    # -- the model ----------------------------------------------------------
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    lm_log(f"init: {n_params} random parameters (seed 0) in "
+           f"{out['init_s']:.1f} s")
+
+    # -- serving: 16 requests, twice -----------------------------------------
+    prompts = next(TokenStream(vocab=cfg.vocab_size, batch=LM_REQUESTS,
+                               seq=LM_PROMPT, seed=0).iter_from(0)
+                   )["tokens"][:, :LM_PROMPT]
+    eng, reqs, rec, tm = lm_serve(cfg, model, ds, prompts)
+    toks = [r.out for r in reqs]
+    check(all(r.done and len(r.out) == LM_NEW for r in reqs),
+          "a request did not finish with its tokens")
+    check(all(0 <= t < cfg.vocab_size for o in toks for t in o),
+          "a token lies outside the vocabulary")
+    check(rec["finite"], "a logit row is not finite")
+    n_tok = sum(len(o) for o in toks)
+    sm = np.asarray(tm["step_ms"])
+    mean_pos = LM_PROMPT - 1 + LM_NEW / 2
+    need_ms, params_ms = lm_decode_bound_ms(cfg, model, int(mean_pos))
+    out["serving"] = dict(
+        requests=len(reqs), tokens=n_tok, wall_s=tm["wall_s"],
+        prefill_s=tm["prefill_s"], steps=len(sm),
+        step_ms_p50=float(np.percentile(sm, 50)),
+        step_ms_p99=float(np.percentile(sm, 99)),
+        tokens_per_s=n_tok / tm["wall_s"], bound_ms=need_ms,
+        params_bound_ms=params_ms)
+    lm_log(f"served {len(reqs)} requests ({LM_SLOTS} slots, s_max "
+           f"{LM_S_MAX}, RAG k=16 n_probe=8 lam=0.25): {n_tok} tokens in "
+           f"{tm['wall_s']:.2f} s ({n_tok / tm['wall_s']:.2f} tokens/s), "
+           f"token-by-token prefill {tm['prefill_s']:.2f} s; decode step "
+           f"with RAG p50 {out['serving']['step_ms_p50']:.3f} ms p99 "
+           f"{out['serving']['step_ms_p99']:.3f} ms over {len(sm)} steps")
+    del eng
+    torch.cuda.empty_cache()
+    eng2, reqs2, _, _ = lm_serve(cfg, model, ds, prompts)
+    same = [r.out for r in reqs2] == toks
+    lm_log(f"second engine, same requests and weights: tokens equal bit "
+           f"for bit {same}")
+    check(same, "greedy decode is not deterministic across two engines")
+    # the engine's decode on its own cache, without and with RAG in turns
+    # (host clock around work ending in a synchronize), then one decode
+    # step's device time in a trace: the card's busy share of the step
+    tok8 = torch.as_tensor(eng2.slot_tok, device=dev)
+    pos = [LM_PROMPT + LM_NEW]
+
+    def decode(with_rag):
+        lg, hid, _ = eng2._decode(eng2.params, eng2.cache, tok8, pos[0])
+        if with_rag:
+            rag_decode_logits(ds, lg, hid, rcfg)
+        pos[0] += 1
+    rcfg = RagConfig()
+    times = {False: [], True: []}
+    for i in range(32):
+        for with_rag in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode(with_rag)
+            torch.cuda.synchronize()
+            times[with_rag].append((time.perf_counter() - t0) * 1e3)
+    busy = kernel_device_ms(lambda: decode(False), ("",), iters=3)
+    sv = out["serving"]
+    for with_rag, key in ((False, "decode"), (True, "decode_rag")):
+        sv[f"{key}_ms_p50"] = float(np.percentile(times[with_rag], 50))
+        sv[f"{key}_ms_p99"] = float(np.percentile(times[with_rag], 99))
+    sv["decode_device_ms"] = busy
+    lm_log(f"decode step in turns (32 each): without RAG p50 "
+           f"{sv['decode_ms_p50']:.3f} ms p99 {sv['decode_ms_p99']:.3f} ms,"
+           f" with RAG p50 {sv['decode_rag_ms_p50']:.3f} ms p99 "
+           f"{sv['decode_rag_ms_p99']:.3f} ms; the card busy "
+           f"{fmt_ms(busy)} of a step without RAG (torch.profiler); byte "
+           f"bound {need_ms:.3f} ms (weights but the embedding table + KV "
+           f"at pos {mean_pos:.0f}; all {n_params} parameters alone "
+           f"{params_ms:.3f} ms at 3.35e12 B/s)")
+    del eng2
+    torch.cuda.empty_cache()
+
+    # -- the same 64 rows on the int8 twin (K2), and a fresh upsert --------
+    H = torch.cat(rec["hidden"])                       # [64, d] float32
+    L = rec["logits"][0]                                # [8, vocab]
+    spec = rcfg.spec()
+    res_twin = executor.run(twin, H, spec)
+    n_new = ds.next_token.shape[0] - 1                  # the spare id
+    idx2 = delta.upsert(ds.index, H[:1], torch.tensor([n_new],
+                                                      dtype=torch.int32),
+                        torch.zeros((1, ds.index.n_attr)))
+    nt = ds.next_token.clone()
+    nt[n_new] = LM_FRESH_TOKEN
+    ds2 = RagDatastore(index=idx2, next_token=nt)
+    before = int(torch.argmax(rag_decode_logits(
+        ds, L[:1], H[:1], dataclasses.replace(rcfg, lam=0.9))))
+    fresh = int(torch.argmax(rag_decode_logits(
+        ds2, L[:1], H[:1], dataclasses.replace(rcfg, lam=0.9))))
+    launches = ops.launch_counts()
+    out["launches"] = launches
+    live = (delta.delta_live(ds.index), delta.delta_live(idx2))
+    lm_log(f"freshness: upserted one recorded hidden state as id {n_new} "
+           f"with next token {LM_FRESH_TOKEN}: argmax at lam 0.9 {before} "
+           f"before, {fresh} after; delta_live {live[0]} -> {live[1]}")
+    check(fresh == LM_FRESH_TOKEN, "the upserted row does not decide the "
+          "next token at lam 0.9")
+    check(live == (0, 1), f"delta_live {live} after one upsert")
+    lm_log(f"launches on the lm path: {launches}")
+    for name in ("ivf_scan_topk", "sq_scan_topk", "kmeans_assign"):
+        check(launches[name] > 0, f"{name} was not launched on the lm path")
+
+    # -- retrieval on K1 against the plain scan, recall, lam -> 0 ------------
+    v2_max = float(torch.sum(ds.index.vectors ** 2, -1).max())
+    tol = topk_tol(H, v2_max)
+    k1_res = executor.run(ds.index, H, spec)
+    k1_logp = knn_logits(ds, H, cfg.vocab_size, rcfg)
+    again = knn_logits(ds, H, cfg.vocab_size, rcfg)
+    kernel = ivf_scan.ivf_scan_topk
+    ivf_scan.ivf_scan_topk = ivf_scan.ivf_scan_plain    # the plain route
+    try:
+        pl_res = executor.run(ds.index, H, spec)
+        pl_logp = knn_logits(ds, H, cfg.vocab_size, rcfg)
+    finally:
+        ivf_scan.ivf_scan_topk = kernel
+    ki, ks = k1_res.to_numpy()
+    pi, ps = pl_res.to_numpy()
+    err, ok, bad = compare_topk(ps, pi, ks, ki, tol)
+    lp_same = torch.equal(k1_logp, pl_logp)
+    lm_log(f"retrieval of {H.shape[0]} recorded rows, K1 vs the plain scan "
+           f"through executor.run: ids equal {ok} (rows differing {bad}), "
+           f"max |score diff| {err:.3e}; knn_logits of the two routes bit "
+           f"for bit {lp_same} (max |diff| "
+           f"{float((k1_logp - pl_logp).abs().max()):.3e}); two K1 runs bit "
+           f"for bit {torch.equal(k1_logp, again)}")
+    check(ok, "K1 retrieval differs from the plain scan")
+    check(lp_same, "knn_logits differ between the K1 and the plain route")
+    check(torch.equal(k1_logp, again), "knn_logits differ between two runs")
+    exact = executor.run(ds.index, H, QB.exact(k=rcfg.k)).to_numpy()[0]
+    out["recall_f32"] = _recall(ki, exact)
+    out["recall_int8"] = _recall(res_twin.to_numpy()[0], exact)
+    out["witness"] = lm_witness(X, H, exact, ki, ds.index, rcfg)
+    # the same store for queries from its own distribution: 64 stored rows
+    # with noise (the hidden states of a random-weight model lie far from
+    # every stored row, where an IVF probe by centroid distance misses)
+    g = torch.Generator(device=dev).manual_seed(2)
+    pick = torch.randint(0, X.shape[0], (H.shape[0],), generator=g,
+                         device=dev)
+    Hs = torch.as_tensor(X, device=dev)[pick] + 0.1 * torch.randn(
+        H.shape, generator=g, device=dev)
+    ex_s = executor.run(ds.index, Hs, QB.exact(k=rcfg.k)).to_numpy()[0]
+    own = pick.cpu().numpy()                # row i of X is asset id i
+    for tier, index in (("f32", ds.index), ("int8", twin)):
+        got = executor.run(index, Hs, spec).to_numpy()[0]
+        out[f"recall_{tier}_stored"] = _recall(got, ex_s)
+        out[f"self_hit_{tier}"] = float(np.mean(got[:, 0] == own))
+    lm_log(f"recall@16 at n_probe 8 against Q.exact on the same store: the "
+           f"recorded hidden states f32 (K1) {out['recall_f32']:.4f}, int8 "
+           f"twin (K2 + rerank) {out['recall_int8']:.4f}; stored rows + "
+           f"noise f32 {out['recall_f32_stored']:.4f}, int8 "
+           f"{out['recall_int8_stored']:.4f} (the row itself first: f32 "
+           f"{out['self_hit_f32']:.4f}, int8 {out['self_hit_int8']:.4f})")
+    check(min(out["self_hit_f32"], out["self_hit_int8"]) >= 0.9,
+          "a stored row perturbed by noise does not find itself")
+    # lam -> 0 as tests/test_serving.py holds it: a uniform kNN term
+    # (a retrieved one-hot term moves a token's log-probability by about
+    # lam / p_lm, which at a 128,256 vocabulary exceeds 1e-4)
+    lsm = torch.log_softmax(L, -1)
+    uni = torch.full_like(L, -float(np.log(cfg.vocab_size)))
+    lam0 = float((interpolate(L, uni, 1e-9) - lsm).abs().max())
+    lam0_knn = float((interpolate(L, knn_logits(ds, H[:8], cfg.vocab_size,
+                                                rcfg), 1e-9) - lsm).abs()
+                     .max())
+    lm_log(f"lam -> 0: interpolate(lam=1e-9) with a uniform kNN term vs "
+           f"log_softmax max |diff| {lam0:.3e} (limit 1e-4); with the "
+           f"retrieved term {lam0_knn:.3e}")
+    check(lam0 <= 1e-4, "interpolate at lam 1e-9 is not the LM")
+
+    out["k1_step_device_ms"] = kernel_device_ms(
+        lambda: knn_logits(ds, H[:8], cfg.vocab_size, rcfg), K1_KERNELS)
+    lm_log(f"K1 device time per decode step (Q={LM_SLOTS}, torch.profiler):"
+           f" {fmt_ms(out['k1_step_device_ms'])}")
+
+    rows = lm_kernel_rows(ds, twin, Hs[:8], H[:8], X,
+                          max(out["datastore"]["minibatch"], 4096))
+    k3 = rows["kmeans_assign"]
+    lm_log(f"datastore build {out['datastore']['build_s']:.1f} s with "
+           f"{out['datastore']['k3_launches']} K3 launches; K3 "
+           f"device time per launch [{k3['shape']}] "
+           f"{fmt_ms(k3['device_ms'])}, at the build's batch of "
+           f"{k3['build_batch']['rows']} rows "
+           f"{fmt_ms(k3['build_batch']['device_ms'])}")
+    del model, twin, ds, ds2, idx2
+    torch.cuda.empty_cache()
+    out["decode_vs_forward"] = lm_decode_matches_forward(cfg, dev)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["seconds"] = time.perf_counter() - t_phase
+    lm_log(f"peak device memory {out['peak_gib']:.2f} GiB")
+    lm_log(f"phase lm: {out['seconds']:.1f} s")
+    return out, rows
+
+
+def lm_only():
+    """Phases 1-2 done: the lm phase alone, then its kernels line."""
+    out, rows = lm_phase()
+    res = {k: dict(r, rag=dict(r)) for k, r in rows.items()}
+    print(json.dumps({"kernels": kernels_line(res, out["launches"])}),
+          flush=True)
+
+
 def kernels_line(res, launches, by_path=None):
     kernels = []
     for kname, r in res.items():
+        refuse_below_bound(r, kname)
         extra = {k: r[k] for k in ("device_ms", "exact", "prefilter",
-                                   "paged", "program", "paged_program")
+                                   "paged", "program", "paged_program",
+                                   "sharded", "rag")
                  if k in r}
         if by_path is not None:
             extra["launches_by_path"] = {p: c[kname]
@@ -2858,6 +3627,9 @@ def run(args):
     if args.kernels_only:
         kernels_only()
         return
+    if args.lm_only:
+        lm_only()
+        return
     t0 = time.perf_counter()
     ctx, out = main_path()
     log(f"phase main: {time.perf_counter() - t0:.1f} s")
@@ -2877,6 +3649,20 @@ def run(args):
         pag.close()
     eng.close()
     shutil.rmtree(WORK, ignore_errors=True)
+    # the lm phase last, on a card freed of the 1M engine and the fleet
+    import gc
+    import torch
+    del ctx, pools, eng, queries
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lm"], lm_rows = lm_phase()
+    for kname, row in lm_rows.items():
+        res[kname]["rag"] = row
+        res[kname]["max_abs_err"] = max(res[kname]["max_abs_err"],
+                                        row["max_abs_err"])
+        res[kname]["ids_equal"] = res[kname]["ids_equal"] \
+            and row["ids_equal"]
+    res["ivf_scan_topk"]["sharded"] = out["sharded"]["k1_row"]
     by_path = {"main": out["launches"],
                "hybrid": out["hybrid"]["launches"],
                "serving": out["serving"]["launches"],
@@ -2887,7 +3673,8 @@ def run(args):
                "paged_rebuild": out["rebuild"]["paged"]["launches"],
                "resident_rebuild": out["rebuild"]["resident"]["launches"],
                "sharded": out["sharded"]["launches"],
-               "fleet": out["fleet"]["launches"]}
+               "fleet": out["fleet"]["launches"],
+               "lm": out["lm"]["launches"]}
     kernels = kernels_line(res, out["launches"], by_path)
     log(json.dumps({"main": {k: v for k, v in out.items()
                              if k != "launches"}}))
@@ -2905,6 +3692,9 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="check and time the kernels on an index built in "
                          "memory (no SQLite), print the kernels line, stop")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="build, then the lm phase alone (llama3-8b with "
+                         "MicroNN retrieval), print its kernels line, stop")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch is driven "
                          "(another tree's, to compare two versions in one "

@@ -1,0 +1,27 @@
+"""llama3-8b [dense] -- GQA, 128k vocab [arXiv:2407.21783; unverified].
+
+32L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=128256, SwiGLU,
+RMSNorm, rope_theta=5e5, untied embeddings.
+"""
+from .base import ModelConfig
+from .registry import ArchSpec
+
+ARCH = ArchSpec(
+    config=ModelConfig(
+        name="llama3-8b",
+        family="dense",
+        num_layers=32,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        d_ff=14336,
+        vocab_size=128256,
+        pattern=("attn",),
+        mlp_act="silu_glu",
+        norm="rmsnorm",
+        rope_theta=500000.0,
+        tie_embeddings=False,
+    ),
+    fsdp=True,
+)

@@ -1,4 +1,4 @@
-"""Carry a JAX-built index into the port.
+"""Carry a JAX-built index, or JAX model weights, into the port.
 
 `index_from_arrays` turns the leaves of a `repro.core.types.IVFIndex`,
 handed over as numpy arrays (`np.asarray` of each leaf, on the JAX side),
@@ -15,6 +15,12 @@ Keys: centroids, csizes, vectors, ids, attrs, valid, counts,
 delta.{vectors, ids, attrs, valid, count, codes}, codes, qstats.lo,
 qstats.scale, code_norms, drift, base_mean_size. Quantizer and delta-code
 keys may be absent (float32-only index).
+
+`params_from_arrays` does the same for the parameters of
+`repro.models.init_model`, flattened to numpy arrays keyed by tree path
+("embed/table", "stack/p0/attn/wq" with its leading stack_count axis,
+"tail/t0/norm1/scale", ...; bfloat16 leaves may stay `ml_dtypes`
+bfloat16 or be widened to float32), and returns the port's Transformer.
 """
 from __future__ import annotations
 
@@ -67,3 +73,52 @@ def index_from_arrays(arrays: Dict[str, np.ndarray], config: dict,
         code_norms=t("code_norms", np.float32),
         drift=t("drift", np.float32),
         config=cfg)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    if a.dtype.name == "bfloat16":      # ml_dtypes: carry the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_arrays(arrays: Dict[str, np.ndarray], cfg, device):
+    """JAX init_model params (flattened by tree path) -> the port's
+    Transformer on `device`, each leaf copied into the parameter of the
+    same name and shape (cast to the parameter's dtype). Every key must be
+    used and every parameter filled."""
+    from .models import transformer
+    model = transformer.init_model(cfg, abstract=True).to_empty(
+        device=torch.device(device))
+    period = len(cfg.stack_period)
+    sources = {}
+    for key, a in arrays.items():
+        parts = key.split("/")
+        if parts[0] == "stack":
+            j = int(parts[1][1:])
+            for r in range(np.shape(a)[0]):
+                sources[f"layers.{r * period + j}." + ".".join(parts[2:])] \
+                    = (key, a[r])
+        elif parts[0] == "tail":
+            i = cfg.stack_count * period + int(parts[1][1:])
+            sources[f"layers.{i}." + ".".join(parts[2:])] = (key, a)
+        else:
+            sources[".".join(parts)] = (key, a)
+    names = dict(model.named_parameters())
+    missing = sorted(set(names) - set(sources))
+    extra = sorted(set(sources) - set(names))
+    if missing or extra:
+        raise ValueError(f"params_from_arrays: parameters without an array "
+                         f"{missing}, arrays without a parameter "
+                         f"{[sources[n][0] for n in extra]}")
+    with torch.no_grad():
+        for name, p in names.items():
+            key, a = sources[name]
+            t = _tensor(np.asarray(a))
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{key}: shape {tuple(t.shape)}, the port "
+                                 f"expects {tuple(p.shape)}")
+            p.copy_(t.to(p.dtype))
+    return model

@@ -105,3 +105,7 @@ def delta_only_delete(delta: DeltaStore, ids: torch.Tensor) -> DeltaStore:
 def delta_free_slots(index: IVFIndex) -> int:
     return int(index.delta.capacity - index.delta.count)
 
+
+def delta_live(index: IVFIndex) -> int:
+    """Live (not tombstoned) rows in the delta store."""
+    return int(index.delta.valid.sum())

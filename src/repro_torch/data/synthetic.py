@@ -12,6 +12,9 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
+
+from ..core.types import resolve_device
 
 # name -> (dim, n_vectors, n_queries, metric)   [paper Table 2]
 TABLE2 = {
@@ -53,6 +56,22 @@ def make(name: str, scale: float = 0.01, k_gt: int = 100,
     Q = X[qi] + 0.1 * rng.normal(size=(q, dim)).astype(np.float32)
     gt = exact_gt(X, Q, k_gt, metric) if with_gt else None
     return Dataset(name=name, metric=metric, X=X, Q=Q, gt=gt)
+
+
+def mixture(n: int, dim: int, n_clusters: int, seed: int = 0,
+            device=None) -> torch.Tensor:
+    """`make`'s clustered Gaussian mixture at any size, drawn on `device`
+    by a torch.Generator (a million-row table at a model's width is
+    seconds of numpy draws, milliseconds on the card): centres N(0, 16 I),
+    a uniform component per row, unit noise. Other numbers than `make`'s
+    from the same seed; `device` None means the card. -> [n, dim]
+    float32."""
+    device = resolve_device(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    centers = torch.randn((n_clusters, dim), generator=g,
+                          device=device) * 4.0
+    asg = torch.randint(0, n_clusters, (n,), generator=g, device=device)
+    return centers[asg] + torch.randn((n, dim), generator=g, device=device)
 
 
 def exact_gt(X: np.ndarray, Q: np.ndarray, k: int, metric: str,

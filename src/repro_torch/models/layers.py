@@ -1,0 +1,255 @@
+"""Parameters and common layers of the model zoo (port of
+repro.models.layers).
+
+A model is a tree of `nn.Module`s whose leaves are the JAX package's
+parameter leaves under the same names and shapes (`attn.wq` is
+[d, H, hd], `mlp.wi.w` is [d, d_ff]), so carrying weights across is a
+plain copy (convert.params_from_arrays). The functions keep the
+reference's names and take the module where the reference takes its
+parameter dict. Inference only: parameters carry no gradient.
+
+Every random draw goes through an explicit `torch.Generator` on the
+parameters' device; the port draws other numbers than `jax.random` from
+the same seed, so parity tests carry the JAX weights over instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.types import resolve_device
+
+
+@dataclasses.dataclass
+class InitCtx:
+    """Carries the generator, dtype and device; abstract=True allocates
+    on the "meta" device (shapes and dtypes only, no memory)."""
+    generator: Optional[torch.Generator]
+    param_dtype: torch.dtype = torch.bfloat16
+    device: Optional[torch.device] = None
+    abstract: bool = False
+
+    def param(self, shape: Sequence[int], scale: Optional[float] = None,
+              zeros: bool = False, ones: bool = False,
+              dtype: Optional[torch.dtype] = None) -> nn.Parameter:
+        dtype = dtype or self.param_dtype
+        shape = tuple(int(s) for s in shape)
+        if self.abstract:
+            v = torch.empty(shape, dtype=dtype, device="meta")
+        elif zeros:
+            v = torch.zeros(shape, dtype=dtype, device=self.device)
+        elif ones:
+            v = torch.ones(shape, dtype=dtype, device=self.device)
+        else:
+            if scale is None:
+                fan_in = shape[0] if len(shape) else 1
+                scale = 1.0 / max(1, fan_in) ** 0.5
+            # truncated normal on [-2, 2], drawn in float32, scaled by
+            # fan-in, then cast (the reference's recipe)
+            v = torch.empty(shape, dtype=torch.float32, device=self.device)
+            nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0,
+                                  generator=self.generator)
+            v = v.mul_(scale).to(dtype)
+        return nn.Parameter(v, requires_grad=False)
+
+
+def promote(a: torch.Tensor, b: torch.Tensor):
+    """JAX's implicit dtype promotion for a binary product: torch's
+    products want equal dtypes."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, *promote(a, b))
+
+
+def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`preferred_element_type=float32`: exact products of the inputs
+    summed in float32, with a float32 result."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    """rmsnorm (`scale`) or layernorm (`scale`, `bias`), float32 params."""
+
+    def __init__(self, ctx: InitCtx, kind: str, dim: int):
+        super().__init__()
+        self.kind = kind
+        self.scale = ctx.param((dim,), ones=True, dtype=torch.float32)
+        if kind != "rmsnorm":
+            self.bias = ctx.param((dim,), zeros=True, dtype=torch.float32)
+
+    def forward(self, x):
+        return apply_norm(self.kind, self, x)
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * p.scale).to(dt)
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * p.scale + p.bias).to(dt)
+
+
+def apply_norm(kind: str, p, x):
+    return rmsnorm(p, x) if kind == "rmsnorm" else layernorm(p, x)
+
+
+def init_norm(ctx: InitCtx, kind: str, dim: int) -> Norm:
+    return Norm(ctx, kind, dim)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+class Table(nn.Module):
+    """A lookup table (`table` [rows, dim]): token or position embedding."""
+
+    def __init__(self, ctx: InitCtx, rows: int, dim: int, scale: float):
+        super().__init__()
+        self.table = ctx.param((rows, dim), scale=scale)
+
+
+def init_embed(ctx: InitCtx, vocab: int, dim: int) -> Table:
+    return Table(ctx, vocab, dim, scale=1.0)
+
+
+def embed(p, tokens, dim: int):
+    # plain lookup; models that scale by sqrt(dim) do it at the call site
+    return p.table[tokens]
+
+
+def unembed_logits(p, x):
+    """Tied unembedding: [.., D] @ [V, D]^T -> [.., V]."""
+    return einsum("...d,vd->...v", x, p.table)
+
+
+class Unembed(nn.Module):
+    def __init__(self, ctx: InitCtx, vocab: int, dim: int):
+        super().__init__()
+        self.w = ctx.param((dim, vocab))
+
+
+def init_unembed(ctx: InitCtx, vocab: int, dim: int) -> Unembed:
+    return Unembed(ctx, vocab, dim)
+
+
+# ---------------------------------------------------------------------------
+# Dense / MLP
+# ---------------------------------------------------------------------------
+
+class Dense(nn.Module):
+    def __init__(self, ctx: InitCtx, d_in: int, d_out: int,
+                 bias: bool = False):
+        super().__init__()
+        self.w = ctx.param((d_in, d_out))
+        self.b = ctx.param((d_out,), zeros=True) if bias else None
+
+
+def init_dense(ctx: InitCtx, d_in: int, d_out: int,
+               bias: bool = False) -> Dense:
+    return Dense(ctx, d_in, d_out, bias=bias)
+
+
+def dense(p, x):
+    y = torch.matmul(*promote(x, p.w))
+    if p.b is not None:
+        y = y + p.b
+    return y
+
+
+class MLP(nn.Module):
+    """act: silu_glu (llama) | gelu_glu (gemma) | relu2 (minitron) |
+    gelu (starcoder2)."""
+
+    def __init__(self, ctx: InitCtx, dim: int, d_ff: int, act: str,
+                 bias: bool = False):
+        super().__init__()
+        self.wi = init_dense(ctx, dim, d_ff, bias=bias)
+        self.wo = init_dense(ctx, d_ff, dim, bias=bias)
+        self.wg = init_dense(ctx, dim, d_ff, bias=bias) \
+            if act.endswith("_glu") else None
+
+
+def init_mlp(ctx: InitCtx, dim: int, d_ff: int, act: str,
+             bias: bool = False) -> MLP:
+    return MLP(ctx, dim, d_ff, act, bias=bias)
+
+
+def mlp(p, x, act: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    h = dense(p.wi, x)
+    if act == "silu_glu":
+        h = F.silu(dense(p.wg, x)) * h
+    elif act == "gelu_glu":
+        h = F.gelu(dense(p.wg, x), approximate="tanh") * h
+    elif act == "relu2":  # nemotron/minitron squared ReLU
+        h = torch.square(F.relu(h))
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return dense(p.wo, h)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """The rotation's [hd/2] frequencies on `device` (None means the
+    card)."""
+    return _freqs(head_dim, float(theta), resolve_device(device))
+
+
+@functools.lru_cache(maxsize=32)
+def _freqs(head_dim: int, theta: float, device: torch.device):
+    # one table per (width, theta, device): every layer of every decode
+    # step reads the same one (callers never write it)
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos, sin) [B, S, 1, hd/2] of the rotation at `positions` [B, S]."""
+    freqs = rope_freqs(head_dim, theta, positions.device)   # [hd/2]
+    ang = positions[..., None].float() * freqs              # [B, S, hd/2]
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor,
+           sin: torch.Tensor) -> torch.Tensor:
+    """Rotate split halves (not interleaved pairs) of x [B, S, H, hd], in
+    float32."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [B, S] absolute token positions."""
+    return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """gemma2 logit soft-capping: cap * tanh(x / cap)."""
+    if cap and cap > 0:
+        return cap * torch.tanh(x.float() / cap)
+    return x

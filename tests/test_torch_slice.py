@@ -447,7 +447,9 @@ def test_port_imports_neither_jax_nor_repro():
         "need = {'repro_torch.obs.metrics', 'repro_torch.obs.trace', "
         "'repro_torch.obs.recorder', 'repro_torch.obs.http', "
         "'repro_torch.serving.frontdoor', 'repro_torch.fleet.manager', "
-        "'repro_torch.distributed.sharded_index'}\n"
+        "'repro_torch.distributed.sharded_index', "
+        "'repro_torch.models.decode', 'repro_torch.core.rag', "
+        "'repro_torch.serving.engine', 'repro_torch.launch.serve'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"

@@ -5,7 +5,8 @@
     python3 chip_smoke.py --quick    # build + one launch of each kernel
     python3 chip_smoke.py --kernels-only [--src OTHER/src]
                                      # phase 4 alone, on an in-memory index
-    python3 chip_smoke.py --lm-only  # build + the lm phase alone
+    python3 chip_smoke.py --lm-only  # build + the lm and lm_families
+                                     # phases alone
 
 Phases (any failure exits non-zero and prints no result line):
   1. device   -- name, count, `nvidia-smi` name and power limit.
@@ -98,6 +99,28 @@ Phases (any failure exits non-zero and prints no result line):
                  versions, timed (K1 / K2 on stored rows with noise and on
                  a decode step's hidden states); decode == forward and
                  prefill == step-by-step at full width on 2 float32 layers.
+     lm_families -- (after lm, llama3-8b freed, its datastore and int8
+                 twin kept) the lm_moe path: phi3.5-moe at full width (d
+                 4,096, 16 experts top-2, vocab 32,064, bf16, seed 0) cut
+                 to 8 of its 32 layers (83.8 GB whole), ServeEngine (8
+                 slots, s_max 1,024, RagConfig()) over the lm datastore
+                 with its next tokens redrawn over 32,064, 16 TokenStream
+                 prompts of 32 tokens, 32 new tokens each, twice (bit for
+                 bit), each layer's choices per expert and drops (0), then
+                 Q.exact and the f32 (K1) and int8 (K2) tiers on 64
+                 recorded hidden states; decode step times with and
+                 without RAG, the host's op count, the card's busy time
+                 beside the byte bound of the chosen experts, routing vs
+                 expert device time, K1 / K2 on the decode hidden states
+                 against their plain versions; phi3.5-moe decode ==
+                 forward (routes equal) and prefill == step-by-step on 2
+                 float32 layers. Then recurrentgemma-2b and xlstm-350m
+                 whole (ServeEngine, 8 slots, s_max 256, 8 prompts of 32
+                 tokens, 16 new, twice bit for bit; recurrentgemma's
+                 requests also served alone), whisper-medium whole
+                 (prefill of 8 x 1,500 frames + 1 token, 16 decode steps,
+                 twice bit for bit), each with decode == forward on one
+                 float32 period at full width.
      Each path's kernel launch counters are zeroed just before it and read
      just after; every kernel the path runs must show launches.
   4. kernels  -- each kernel against its plain PyTorch version on the card
@@ -2997,19 +3020,21 @@ def lm_int8_twin(index, rerank_factor=4):
                                    rerank_factor=rerank_factor))
 
 
-def lm_serve(cfg, model, ds, prompts):
-    """One ServeEngine (LM_SLOTS slots, s_max LM_S_MAX, RAG with the
-    default RagConfig) over the prompts, max_new_tokens LM_NEW each: the
-    requests, the hidden states and LM logits of the first LM_REC_STEPS
-    RAG steps, and times (admission = token-by-token prefill; a step's
-    time is step() without its admission)."""
+def lm_serve(cfg, model, ds, prompts, slots=LM_SLOTS, s_max=LM_S_MAX,
+             new=LM_NEW):
+    """One ServeEngine (`slots` slots, `s_max`, RAG with the default
+    RagConfig over `ds`, none when it is None) over the prompts,
+    max_new_tokens `new` each: the requests, the hidden states and LM
+    logits of the first LM_REC_STEPS RAG steps, and times (admission =
+    token-by-token prefill; a step's time is step() without its
+    admission)."""
     import torch
     from repro_torch.core.rag import RagConfig
     from repro_torch.serving import Request, ServeEngine
     from repro_torch.serving import engine as engine_mod
-    eng = ServeEngine(cfg, model, slots=LM_SLOTS, s_max=LM_S_MAX, rag=ds,
+    eng = ServeEngine(cfg, model, slots=slots, s_max=s_max, rag=ds,
                       rag_cfg=RagConfig())
-    reqs = [Request(uid=i, prompt=list(map(int, p)), max_new_tokens=LM_NEW)
+    reqs = [Request(uid=i, prompt=list(map(int, p)), max_new_tokens=new)
             for i, p in enumerate(prompts)]
     admit = [0.0]
     rec = dict(hidden=[], logits=[], finite=True)
@@ -3038,7 +3063,7 @@ def lm_serve(cfg, model, ds, prompts):
             eng.submit(r)
         t_all = time.perf_counter()
         while not all(r.done for r in reqs):
-            check(len(step_ms) < 10 * LM_REQUESTS * LM_NEW,
+            check(len(step_ms) < 10 * len(reqs) * new,
                   "the engine does not finish its requests")
             a0, t0 = admit[0], time.perf_counter()
             eng.step()
@@ -3047,6 +3072,7 @@ def lm_serve(cfg, model, ds, prompts):
         wall = time.perf_counter() - t_all
     finally:
         engine_mod.rag_decode_logits = plain_rag
+        del eng._admit    # the wrapper's cycle would keep the model alive
     return eng, reqs, rec, dict(wall_s=wall, prefill_s=admit[0],
                                 step_ms=step_ms)
 
@@ -3065,50 +3091,112 @@ def lm_decode_bound_ms(cfg, model, pos):
     return 1e3 * need / HBM_BYTES_PER_S, 1e3 * params / HBM_BYTES_PER_S
 
 
+class RouteLog:
+    """Records every MoE layer's top-k expert indices (models.moe.route)
+    while it is entered, in call order."""
+
+    def __init__(self):
+        self.idx = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_lib
+        self._lib, self._plain = moe_lib, moe_lib.route
+
+        def route(x, router, top_k):
+            out = self._plain(x, router, top_k)
+            self.idx.append(out[2])
+            return out
+        moe_lib.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._lib.route = self._plain
+
+
+def decode_matches_forward(c2, dev, tok, frames=None, cache_check=False):
+    """c2, a float32 config at full width: decode_step's logits at each
+    position of tok [1, S] against forward's within 1e-3 x max |logit|
+    (TF32 off). With frames (whisper) the first token goes in by the
+    cache fill, as the reference's test does. With cache_check, prefill's
+    cache against the step-by-step one (within 1e-3 x max |k, v|,
+    positions equal); with experts, every layer's routes equal at every
+    position. -> (summary, line)."""
+    import torch
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_model, prefill)
+    from repro_torch.models.decode import fill_cache_from_forward
+    t0 = time.perf_counter()
+    m2 = init_model(c2, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    s = tok.shape[1]
+    batch = {"tokens": tok} if frames is None \
+        else {"tokens": tok, "frames": frames}
+    with RouteLog() as fwd_routes:
+        ref = forward(c2, m2, batch)[0][0]
+    tol = 1e-3 * float(ref.abs().max())
+    start = 0
+    if frames is None:
+        cache = init_cache(c2, 1, s, dtype=torch.float32, device=dev)
+    else:
+        cache = fill_cache_from_forward(
+            c2, m2, {"tokens": tok[:, :1], "frames": frames}, s)
+        start = 1
+    err = 0.0
+    with RouteLog() as dec_routes:
+        for t in range(start, s):
+            lg, _, cache = decode_step(c2, m2, cache, tok[:, t:t + 1], t)
+            err = max(err, float((lg[0] - ref[t]).abs().max()))
+    out = dict(layers=c2.num_layers, positions=s, max_logit_err=err,
+               limit=tol)
+    line = (f"decode == forward ({c2.num_layers} layers, float32, d "
+            f"{c2.d_model}, vocab {c2.vocab_size}, {s} positions): max "
+            f"|logit diff| {err:.3e} (limit {tol:.3e})")
+    check(err <= tol, f"{c2.name}: decode_step differs from forward by "
+          f"{err:.3e}")
+    if fwd_routes.idx:
+        n_layers = len(fwd_routes.idx)
+        same = all(torch.equal(dec_routes.idx[t * n_layers + i][0, 0],
+                               fwd_routes.idx[i][0, t])
+                   for t in range(s) for i in range(n_layers))
+        out["routes_equal"] = same
+        line += f"; top-2 routes equal at every position and layer {same}"
+        check(same, f"{c2.name}: decode routes differ from forward's")
+    if cache_check:
+        _, _, pc = prefill(c2, m2, batch, s)
+        cerr, cmax, pos_eq = 0.0, 0.0, True
+        for key in pc:
+            pos_eq &= torch.equal(pc[key]["pos"], cache[key]["pos"])
+            for kv in ("k", "v"):
+                cerr = max(cerr, float((pc[key][kv] - cache[key][kv]).abs()
+                                       .max()))
+                cmax = max(cmax, float(cache[key][kv].abs().max()))
+        out["cache_err"] = cerr
+        line += (f"; prefill cache vs step-by-step max |diff| {cerr:.3e} of "
+                 f"max |k,v| {cmax:.3e}, positions equal {pos_eq}")
+        check(pos_eq and cerr <= 1e-3 * cmax,
+              f"{c2.name}: prefill's cache differs from the step-by-step "
+              f"cache by {cerr}")
+    out["seconds"] = time.perf_counter() - t0
+    del m2, cache
+    torch.cuda.empty_cache()
+    return out, line + f" ({out['seconds']:.1f} s)"
+
+
 def lm_decode_matches_forward(cfg, dev):
     """dataclasses.replace(cfg, num_layers=2, dtype="float32") at full
-    width: decode_step logits at each of LM_CHECK_PROMPT positions against
-    forward's within 1e-3 x max |logit|, and prefill's cache against the
-    step-by-step cache (float32 products, TF32 off)."""
+    width: decode == forward over LM_CHECK_PROMPT TokenStream positions,
+    and prefill's cache == the step-by-step cache."""
     import dataclasses
     import torch
     from repro_torch.data.tokens import TokenStream
-    from repro_torch.models import (decode_step, forward, init_cache,
-                                    init_model, prefill)
-    t0 = time.perf_counter()
     c2 = dataclasses.replace(cfg, num_layers=LM_CHECK_LAYERS,
                              dtype="float32")
-    m2 = init_model(c2, torch.Generator(device=dev).manual_seed(0),
-                    device=dev)
     tok = torch.as_tensor(next(TokenStream(
         vocab=cfg.vocab_size, batch=1, seq=LM_CHECK_PROMPT,
         seed=0).iter_from(0))["tokens"], device=dev)
-    ref = forward(c2, m2, {"tokens": tok})[0][0]
-    tol = 1e-3 * float(ref.abs().max())
-    cache = init_cache(c2, 1, LM_CHECK_PROMPT, dtype=torch.float32,
-                       device=dev)
-    err = 0.0
-    for t in range(LM_CHECK_PROMPT):
-        lg, _, cache = decode_step(c2, m2, cache, tok[:, t:t + 1], t)
-        err = max(err, float((lg[0] - ref[t]).abs().max()))
-    _, _, pc = prefill(c2, m2, {"tokens": tok}, LM_CHECK_PROMPT)
-    cerr, cmax, pos_eq = 0.0, 0.0, True
-    for key in pc:
-        pos_eq &= torch.equal(pc[key]["pos"], cache[key]["pos"])
-        for kv in ("k", "v"):
-            cerr = max(cerr, float((pc[key][kv] - cache[key][kv]).abs()
-                                   .max()))
-            cmax = max(cmax, float(cache[key][kv].abs().max()))
-    lm_log(f"decode == forward ({LM_CHECK_LAYERS} layers, float32, d "
-           f"{c2.d_model}, vocab {c2.vocab_size}, {LM_CHECK_PROMPT} "
-           f"positions): max |logit diff| {err:.3e} (limit {tol:.3e}); "
-           f"prefill cache vs step-by-step max |diff| {cerr:.3e} of max "
-           f"|k,v| {cmax:.3e}, positions equal {pos_eq} "
-           f"({time.perf_counter() - t0:.1f} s)")
-    check(err <= tol, f"decode_step differs from forward by {err:.3e}")
-    check(pos_eq and cerr <= 1e-3 * cmax,
-          f"prefill's cache differs from the step-by-step cache by {cerr}")
-    return dict(max_logit_err=err, limit=tol, cache_err=cerr)
+    out, line = decode_matches_forward(c2, dev, tok, cache_check=True)
+    lm_log(line)
+    return out
 
 
 def lm_scan_rows(ds, twin, Q, plain=True):
@@ -3521,22 +3609,532 @@ def lm_phase():
            f"{fmt_ms(k3['device_ms'])}, at the build's batch of "
            f"{k3['build_batch']['rows']} rows "
            f"{fmt_ms(k3['build_batch']['device_ms'])}")
-    del model, twin, ds, ds2, idx2
+    del model, ds2, idx2
     torch.cuda.empty_cache()
     out["decode_vs_forward"] = lm_decode_matches_forward(cfg, dev)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     out["seconds"] = time.perf_counter() - t_phase
     lm_log(f"peak device memory {out['peak_gib']:.2f} GiB")
     lm_log(f"phase lm: {out['seconds']:.1f} s")
+    return out, rows, dict(ds=ds, twin=twin, X=X)
+
+
+# ---------------------------------------------------------------------------
+# the lm_families phase: phi3.5-moe at full width serving with retrieval,
+# then recurrentgemma-2b, xlstm-350m and whisper-medium whole
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "phi3.5-moe"
+MOE_LAYERS = 8               # of 32: the whole model (83.8 GB) exceeds 80 GB
+MOE_TOKEN_SEED = 3           # the datastore's next tokens over 32,064
+FAM_ARCHS = ("recurrentgemma-2b", "xlstm-350m", "whisper-medium")
+FAM_SLOTS, FAM_S_MAX, FAM_PROMPT, FAM_NEW = 8, 256, 32, 16
+FAM_ALONE = (0, 5)           # recurrentgemma requests served alone too
+# decode == forward in float32 on one whole period at full width:
+# (layers, encoder layers, positions)
+FAM_CHECK = {"phi3.5-moe": (2, 0, 64), "recurrentgemma-2b": (3, 0, 64),
+             "xlstm-350m": (8, 0, 256), "whisper-medium": (2, 2, 16)}
+
+
+def fam_log(msg):
+    log(f"lm_families {msg}  [{CARD}]")
+
+
+def fam_mem(step):
+    import torch
+    fam_log(f"memory after {step}: {torch.cuda.memory_allocated() / 2**30:.2f}"
+            f" GiB allocated, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB")
+
+
+class ExpertLoad:
+    """While entered, each MoE layer's kept choices per expert and its
+    dropped choices, summed on the device (no wait) over every dispatch
+    (models.moe._dispatch), keyed by the layer's router."""
+
+    def __init__(self, model):
+        self.layer = {id(l.moe.router): i for i, l in enumerate(model.layers)
+                      if l.moe is not None}
+        self.kept, self.drops = {}, {}
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+        from repro_torch.models import moe as moe_lib
+        self._lib, self._plain = moe_lib, moe_lib._dispatch
+
+        def dispatch(xt, router, top_k, cap):
+            out = self._plain(xt, router, top_k, cap)
+            i, e = self.layer[id(router)], router.shape[1]
+            slot, keep = out[1], out[2]
+            kept = (F.one_hot(torch.div(slot, cap, rounding_mode="floor"), e)
+                    * keep[..., None]).sum((0, 1))
+            self.kept[i] = self.kept.get(i, 0) + kept
+            self.drops[i] = self.drops.get(i, 0) + (~keep).sum()
+            return out
+        moe_lib._dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self._lib._dispatch = self._plain
+
+
+def host_ops(fn):
+    """torch functions and tensor methods that one fn() calls from Python
+    (torch.overrides.TorchFunctionMode): the host's op count."""
+    from torch.overrides import TorchFunctionMode
+
+    class Count(TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.n
+
+
+def moe_decode_bound_ms(cfg, model, pos, active):
+    """The least time of one decode step at batch LM_SLOTS and position
+    `pos`, by bytes, counting only the experts the step's tokens chose
+    (`active`: distinct experts a layer): every other parameter read once
+    but the embedding table (LM_SLOTS rows of it), the KV entries up to pos
+    read and the new ones written. Also the bound with all experts read
+    (what the dense [E, C] dispatch reads)."""
+    emb = model.embed.table
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    layer = model.layers[0].moe
+    expert = sum(w[0].numel() * w.element_size()
+                 for w in (layer.wi, layer.wg, layer.wo))
+    idle = sum(cfg.n_experts - a for a in active) * expert
+    kv = (cfg.num_layers * 2 * LM_SLOTS * (pos + 2) * cfg.num_kv_heads
+          * cfg.head_dim * 2)
+    all_bytes = params - emb.numel() * emb.element_size() \
+        + LM_SLOTS * cfg.d_model * emb.element_size() + kv
+    return 1e3 * (all_bytes - idle) / HBM_BYTES_PER_S, \
+        1e3 * all_bytes / HBM_BYTES_PER_S
+
+
+def moe_split_ms(model, cfg, h):
+    """Device ms of one decode step's MoE work at batch LM_SLOTS, from a
+    profiler trace of layer 0 on the rows h [LM_SLOTS, 1, d] (bf16), times
+    the layer count: routing + dispatch + combine, and the expert
+    products."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.layers import einsum
+    p = model.layers[0].moe
+    e, k = cfg.n_experts, cfg.top_k
+    cap = int(max(1, round(1 * k / e * cfg.capacity_factor)))
+    rows = h.reshape(LM_SLOTS, 1, -1)
+    d = moe_lib._dispatch(rows, p.router, k, cap)
+    xe = d[0].reshape(LM_SLOTS, 1, e, cap, -1)
+
+    def experts():
+        hh = einsum("bgecd,edf->bgecf", xe, p.wi)
+        hh = F.silu(einsum("bgecd,edf->bgecf", xe, p.wg)) * hh
+        return einsum("bgecf,efd->bgecd", hh, p.wo)
+    ye = experts().reshape(LM_SLOTS, e * cap, -1)
+
+    def routing():
+        x = moe_lib._dispatch(rows, p.router, k, cap)
+        return moe_lib._combine(ye, x[1], x[2], x[3], x[4], 1, k)
+    r = kernel_device_ms(routing, ("",), iters=10)
+    x = kernel_device_ms(experts, ("",), iters=10)
+    n = cfg.num_layers
+    return (None if r is None else r * n), (None if x is None else x * n)
+
+
+def moe_serving(store, dev):
+    """The lm_moe path: phi3.5-moe (MOE_LAYERS layers at full width,
+    random weights from seed 0) serving LM_REQUESTS requests with the lm
+    phase's datastore and its int8 twin, twice; then the checks and the
+    times. -> (summary, K1 / K2 rows on the decode step's hidden
+    states)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import executor
+    from repro_torch.core.query import Q as QB
+    from repro_torch.core.rag import (RagConfig, RagDatastore, knn_logits,
+                                      rag_decode_logits)
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model
+    full = get_arch(MOE_ARCH).config
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    out = {}
+    fam_log(f"config {full.name}: d_model {cfg.d_model}, {cfg.num_heads} "
+            f"heads ({cfg.num_kv_heads} KV), head_dim {cfg.head_dim}, "
+            f"{cfg.n_experts} experts top-{cfg.top_k}, SwiGLU d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; REDUCED to "
+            f"{MOE_LAYERS} of its {full.num_layers} layers: "
+            f"{full.param_count() / 1e9:.2f} B parameters whole "
+            f"({2 * full.param_count() / 1e9:.1f} GB in bf16) exceed the "
+            f"card's 80 GB before any datastore; {MOE_LAYERS} layers hold "
+            f"{cfg.param_count() / 1e9:.2f} B "
+            f"({2 * cfg.param_count() / 1e9:.1f} GB)")
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    fam_log(f"init: {n_params} random parameters (seed 0) in "
+            f"{time.perf_counter() - t0:.1f} s")
+    fam_mem("phi3.5-moe init")
+    ds0, twin = store["ds"], store["twin"]
+    rng = np.random.default_rng(MOE_TOKEN_SEED)
+    ds = RagDatastore(index=ds0.index, next_token=torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, ds0.next_token.shape[0]),
+        dtype=torch.int32, device=dev))
+    fam_log(f"datastore: the lm phase's {ds.index.k} partitions of "
+            f"{ds.index.dim}-wide rows and its int8 twin; next tokens "
+            f"redrawn over {cfg.vocab_size} (numpy seed {MOE_TOKEN_SEED})")
+    prompts = next(TokenStream(vocab=cfg.vocab_size, batch=LM_REQUESTS,
+                               seq=LM_PROMPT, seed=0).iter_from(0)
+                   )["tokens"][:, :LM_PROMPT]
+
+    # -- the path: served twice, then the recall checks on both tiers ------
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    eng, reqs, rec, tm = lm_serve(cfg, model, ds, prompts)
+    toks = [r.out for r in reqs]
+    del eng
+    with ExpertLoad(model) as load:
+        eng2, reqs2, _, _ = lm_serve(cfg, model, ds, prompts)
+    same = [r.out for r in reqs2] == toks
+    H = torch.cat(rec["hidden"])                       # [64, d] float32
+    rcfg = RagConfig()
+    spec = rcfg.spec()
+    exact = executor.run(ds.index, H, QB.exact(k=rcfg.k)).to_numpy()[0]
+    k1_ids = executor.run(ds.index, H, spec).to_numpy()[0]
+    int8_ids = executor.run(twin, H, spec).to_numpy()[0]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    out["launches"] = launches
+    fam_log(f"launches on the lm_moe path: {launches}")
+    n_tok = sum(len(o) for o in toks)
+    check(all(r.done and len(r.out) == LM_NEW for r in reqs),
+          "a phi3.5-moe request did not finish with its tokens")
+    check(all(0 <= t < cfg.vocab_size for o in toks for t in o),
+          "a phi3.5-moe token lies outside the vocabulary")
+    check(rec["finite"], "a phi3.5-moe logit row is not finite")
+    check(same, "phi3.5-moe: greedy decode differs across two engines")
+    check(launches["ivf_scan_topk"] > 0, "K1 was not launched on lm_moe")
+    check(launches["sq_scan_topk"] > 0, "K2 was not launched on lm_moe")
+    kept = {i: load.kept[i].cpu().tolist() for i in sorted(load.kept)}
+    drops = {i: int(load.drops[i]) for i in sorted(load.drops)}
+    sm = np.asarray(tm["step_ms"])
+    out["serving"] = dict(
+        requests=len(reqs), tokens=n_tok, wall_s=tm["wall_s"],
+        prefill_s=tm["prefill_s"], steps=len(sm),
+        step_ms_p50=float(np.percentile(sm, 50)),
+        step_ms_p99=float(np.percentile(sm, 99)),
+        tokens_per_s=n_tok / tm["wall_s"], tokens_equal=same,
+        expert_tokens=kept, drops=drops)
+    fam_log(f"served {len(reqs)} requests ({LM_SLOTS} slots, s_max "
+            f"{LM_S_MAX}, RAG k=16 n_probe=8 lam=0.25): {n_tok} tokens in "
+            f"{tm['wall_s']:.2f} s ({n_tok / tm['wall_s']:.2f} tokens/s), "
+            f"token-by-token prefill {tm['prefill_s']:.2f} s; decode step "
+            f"with RAG p50 {out['serving']['step_ms_p50']:.3f} ms p99 "
+            f"{out['serving']['step_ms_p99']:.3f} ms over {len(sm)} steps; "
+            f"second engine's tokens equal bit for bit {same}")
+    for i in kept:
+        fam_log(f"layer {i}: choices kept per expert over the second run "
+                f"{kept[i]} (sum {sum(kept[i])}), dropped {drops[i]}")
+    check(all(v == 0 for v in drops.values()),
+          "phi3.5-moe dropped expert choices in decode")
+    fam_mem("phi3.5-moe serving")
+
+    # -- the recorded hidden states: Q.exact, recall of both tiers ----------
+    out["recall_f32"] = _recall(k1_ids, exact)
+    out["recall_int8"] = _recall(int8_ids, exact)
+    out["witness"] = lm_witness(store["X"], H, exact, k1_ids, ds.index, rcfg)
+    X = store["X"]
+    g = torch.Generator(device=dev).manual_seed(2)
+    pick = torch.randint(0, X.shape[0], (H.shape[0],), generator=g,
+                         device=dev)
+    Hs = torch.as_tensor(X, device=dev)[pick] + 0.1 * torch.randn(
+        H.shape, generator=g, device=dev)
+    ex_s = executor.run(ds.index, Hs, QB.exact(k=rcfg.k)).to_numpy()[0]
+    for tier, index in (("f32", ds.index), ("int8", twin)):
+        got = executor.run(index, Hs, spec).to_numpy()[0]
+        out[f"recall_{tier}_stored"] = _recall(got, ex_s)
+    fam_log(f"recall@16 at n_probe 8 against Q.exact: phi3.5-moe's "
+            f"recorded hidden states f32 (K1) {out['recall_f32']:.4f}, int8 "
+            f"(K2 + rerank) {out['recall_int8']:.4f}; stored rows + noise "
+            f"f32 {out['recall_f32_stored']:.4f}, int8 "
+            f"{out['recall_int8_stored']:.4f}")
+
+    # -- decode times, the card's busy time, the byte bound, the MoE split --
+    tok8 = torch.as_tensor(eng2.slot_tok, device=dev)
+    pos = [LM_PROMPT + LM_NEW]
+
+    def decode(with_rag):
+        lg, hid, _ = eng2._decode(eng2.params, eng2.cache, tok8, pos[0])
+        if with_rag:
+            rag_decode_logits(ds, lg, hid, rcfg)
+        pos[0] += 1
+    times = {False: [], True: []}
+    for _ in range(32):
+        for with_rag in (False, True):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            decode(with_rag)
+            torch.cuda.synchronize()
+            times[with_rag].append((time.perf_counter() - t1) * 1e3)
+    busy = kernel_device_ms(lambda: decode(False), ("",), iters=3)
+    n_ops = host_ops(lambda: decode(False))
+    with RouteLog() as step_routes:
+        decode(False)
+    active = [int(torch.unique(r).numel()) for r in step_routes.idx]
+    mean_pos = LM_PROMPT - 1 + LM_NEW / 2
+    need_ms, all_ms = moe_decode_bound_ms(cfg, model, int(mean_pos), active)
+    route_ms, expert_ms = moe_split_ms(model, cfg,
+                                       H[:LM_SLOTS].to(torch.bfloat16))
+    sv = out["serving"]
+    for with_rag, key in ((False, "decode"), (True, "decode_rag")):
+        sv[f"{key}_ms_p50"] = float(np.percentile(times[with_rag], 50))
+        sv[f"{key}_ms_p99"] = float(np.percentile(times[with_rag], 99))
+    sv.update(decode_device_ms=busy, host_ops=n_ops, active_experts=active,
+              bound_ms=need_ms, all_experts_bound_ms=all_ms,
+              moe_route_dispatch_combine_ms=route_ms,
+              moe_expert_ms=expert_ms)
+    fam_log(f"decode step in turns (32 each): without RAG p50 "
+            f"{sv['decode_ms_p50']:.3f} ms p99 {sv['decode_ms_p99']:.3f} ms, "
+            f"with RAG p50 {sv['decode_rag_ms_p50']:.3f} ms p99 "
+            f"{sv['decode_rag_ms_p99']:.3f} ms; {n_ops} torch calls from "
+            f"the host a step; the card busy {fmt_ms(busy)} of a step "
+            f"without RAG (torch.profiler); byte bound {need_ms:.3f} ms "
+            f"counting the experts this step's 8 tokens chose ({active} "
+            f"distinct of {cfg.n_experts} a layer; up to 16 of 16 for 8 "
+            f"tokens x top-2), {all_ms:.3f} ms with all {cfg.n_experts} "
+            f"experts (what the [E, C] dispatch reads), at 3.35e12 B/s")
+    fam_log(f"MoE device time a step ({cfg.num_layers} layers x layer 0's "
+            f"work at batch {LM_SLOTS}, torch.profiler): routing + dispatch "
+            f"+ combine {fmt_ms(route_ms)}, expert products "
+            f"{fmt_ms(expert_ms)}")
+    out["k1_step_device_ms"] = kernel_device_ms(
+        lambda: knn_logits(ds, H[:LM_SLOTS], cfg.vocab_size, rcfg),
+        K1_KERNELS)
+    fam_log(f"K1 device time per decode step (Q={LM_SLOTS}, torch.profiler):"
+            f" {fmt_ms(out['k1_step_device_ms'])}")
+    del eng2
+    rows = dict(zip(("ivf_scan_topk", "sq_scan_topk"),
+                    lm_scan_rows(ds, twin, H[:LM_SLOTS])))
+    for name, r in rows.items():
+        refuse_below_bound(r, f"lm_moe {name}")
+        fam_log(f"time {name} on phi3.5-moe's decode hidden states "
+                f"[{r['shape']}, {r['rows_scanned']:.0f} rows scanned]: "
+                f"kernel {r['ms']:.4f} ms, device {fmt_ms(r['device_ms'])}, "
+                f"plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+        check(r["ids_equal"], f"{name} disagrees with its plain version on "
+              f"phi3.5-moe's hidden states")
+    del model, ds
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+def family_prompts(vocab):
+    from repro_torch.data.tokens import TokenStream
+    return next(TokenStream(vocab=vocab, batch=FAM_SLOTS, seq=FAM_PROMPT,
+                            seed=0).iter_from(0))["tokens"][:, :FAM_PROMPT]
+
+
+def state_bytes(cache, slots):
+    return sum(t.numel() * t.element_size() for c in cache.values()
+               for t in c.values()) / slots
+
+
+def family_engine(name, cfg, model, dev):
+    """recurrentgemma / xlstm: a ServeEngine of FAM_SLOTS slots, s_max
+    FAM_S_MAX, over FAM_SLOTS TokenStream prompts of FAM_PROMPT tokens,
+    FAM_NEW new tokens each, twice (bit for bit); recurrentgemma's
+    requests FAM_ALONE also alone."""
+    import numpy as np
+    import torch
+    prompts = family_prompts(cfg.vocab_size)
+    eng, reqs, _, tm = lm_serve(cfg, model, None, prompts, slots=FAM_SLOTS,
+                                s_max=FAM_S_MAX, new=FAM_NEW)
+    toks = [r.out for r in reqs]
+    per_slot = state_bytes(eng.cache, FAM_SLOTS)
+    del eng
+    eng2, reqs2, _, tm2 = lm_serve(cfg, model, None, prompts,
+                                   slots=FAM_SLOTS, s_max=FAM_S_MAX,
+                                   new=FAM_NEW)
+    del eng2
+    same = [r.out for r in reqs2] == toks
+    check(all(r.done and len(r.out) == FAM_NEW for r in reqs),
+          f"{name}: a request did not finish")
+    check(all(0 <= t < cfg.vocab_size for o in toks for t in o),
+          f"{name}: a token lies outside the vocabulary")
+    check(same, f"{name}: greedy decode differs across two engines")
+    sm = np.asarray(tm["step_ms"])
+    n_tok = sum(len(o) for o in toks)
+    out = dict(tokens=n_tok, wall_s=tm["wall_s"], prefill_s=tm["prefill_s"],
+               step_ms_p50=float(np.percentile(sm, 50)),
+               step_ms_p99=float(np.percentile(sm, 99)),
+               tokens_per_s=n_tok / tm["wall_s"], state_bytes_per_slot=per_slot,
+               tokens_equal=same, second_wall_s=tm2["wall_s"])
+    line = (f"{name}: served {len(reqs)} requests ({FAM_SLOTS} slots, s_max "
+            f"{FAM_S_MAX}): {n_tok} tokens in {tm['wall_s']:.2f} s "
+            f"({out['tokens_per_s']:.2f} tokens/s), token-by-token prefill "
+            f"{tm['prefill_s']:.2f} s, decode step p50 "
+            f"{out['step_ms_p50']:.3f} ms p99 {out['step_ms_p99']:.3f} ms; "
+            f"state {per_slot / 2**20:.2f} MiB a slot; second engine equal "
+            f"bit for bit {same}")
+    if cfg.tail_kinds:
+        alone = {}
+        for i in FAM_ALONE:
+            e1, r1, _, _ = lm_serve(cfg, model, None, prompts[i:i + 1],
+                                    slots=FAM_SLOTS, s_max=FAM_S_MAX,
+                                    new=FAM_NEW)
+            alone[i] = r1[0].out == toks[i]
+            del e1
+        out["alone_equal"] = alone
+        line += (f"; tail {cfg.tail_kinds}: requests {list(alone)} served "
+                 f"alone give their batched tokens {alone}")
+        check(all(alone.values()), f"{name}: a request served alone "
+              f"differs from the batch (slot isolation)")
+    torch.cuda.synchronize()
+    return out, line
+
+
+def whisper_serve(cfg, model, dev):
+    """whisper: configs.inputs frames [FAM_SLOTS, enc_seq, d] (normal x
+    0.1 from a torch.Generator) and one token a row, prefill, then FAM_NEW
+    greedy decode_steps, twice (bit for bit)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.inputs import input_specs, materialize
+    from repro_torch.models import decode_step, prefill
+    batch = materialize(input_specs(cfg, ShapeConfig(
+        "whisper_prefill", "prefill", 1, FAM_SLOTS)), seed=0, device=dev)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, cache = prefill(cfg, model, batch, FAM_S_MAX)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()       # the encoder's score blocks
+        toks, step_ms = [], []
+        for t in range(1, FAM_NEW + 1):
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            toks.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _, cache = decode_step(cfg, model, cache, tok, t)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(logits).all()), "whisper: a logit is not "
+              "finite")
+        runs.append((torch.cat(toks, 1).cpu(), pre_s, step_ms,
+                     state_bytes(cache, FAM_SLOTS)))
+        del cache
+    same = torch.equal(runs[0][0], runs[1][0])
+    check(same, "whisper: greedy decode differs across two runs")
+    sm = np.asarray(runs[0][2])
+    out = dict(prefill_s=runs[0][1], step_ms_p50=float(np.percentile(sm, 50)),
+               step_ms_p99=float(np.percentile(sm, 99)),
+               state_bytes_per_slot=runs[0][3], tokens_equal=same)
+    return out, (f"whisper-medium: prefill of {FAM_SLOTS} x "
+                 f"{cfg.enc_seq} frames + 1 token {runs[0][1]:.2f} s (second "
+                 f"{runs[1][1]:.2f} s), {FAM_NEW} decode steps p50 "
+                 f"{out['step_ms_p50']:.3f} ms p99 {out['step_ms_p99']:.3f} "
+                 f"ms; cache {runs[0][3] / 2**20:.2f} MiB a slot (self-attention"
+                 f" ring of {FAM_S_MAX} + the encoder's K/V); tokens equal "
+                 f"bit for bit {same}")
+
+
+def family_check(name, cfg, dev):
+    """decode == forward on FAM_CHECK's float32 period at full width."""
+    import dataclasses
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    layers, enc, s = FAM_CHECK[name]
+    over = dict(num_layers=layers, dtype="float32")
+    if enc:
+        over["encoder_layers"] = enc
+    if cfg.n_experts:          # the forward drops nothing (tests/test_models)
+        over["capacity_factor"] = float(cfg.n_experts)
+    c2 = dataclasses.replace(cfg, **over)
+    tok = torch.as_tensor(next(TokenStream(
+        vocab=cfg.vocab_size, batch=1, seq=s, seed=0).iter_from(0))["tokens"],
+        device=dev)
+    frames = None
+    if enc:
+        g = torch.Generator(device=dev).manual_seed(1)
+        frames = 0.1 * torch.randn((1, cfg.enc_seq, cfg.d_model),
+                                   generator=g, device=dev)
+    return decode_matches_forward(c2, dev, tok, frames,
+                                  cache_check=bool(cfg.n_experts))
+
+
+def lm_families_phase(store):
+    """ROADMAP Queue A 16a-ii on the card; see the module docstring.
+    -> (summary, K1 / K2 rows on phi3.5-moe's decode hidden states)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_model
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    out, rows = moe_serving(store, dev)
+    store.clear()
+    torch.cuda.empty_cache()
+    out["peak_gib_moe"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    fam_mem("the lm_moe path (datastore freed)")
+    out["phi_check"], line = family_check(MOE_ARCH, get_arch(MOE_ARCH).config,
+                                          dev)
+    fam_log(f"phi3.5-moe {line}")
+    for name in FAM_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_arch(name).config
+        model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        n = sum(p.numel() for p in model.parameters())
+        fam_log(f"{name}: {cfg.num_layers} layers {cfg.layer_kinds()[:8]}..."
+                f" d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+                f"{cfg.dtype}, {n} random parameters (seed 0), full width "
+                f"and depth")
+        if cfg.encoder_layers:
+            res, line = whisper_serve(cfg, model, dev)
+        else:
+            res, line = family_engine(name, cfg, model, dev)
+        fam_log(line)
+        del model
+        torch.cuda.empty_cache()
+        res["check"], cline = family_check(name, cfg, dev)
+        fam_log(f"{name} {cline}")
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["seconds"] = time.perf_counter() - t0
+        fam_mem(f"{name} ({res['seconds']:.1f} s)")
+        out[name] = res
+    out["seconds"] = time.perf_counter() - t_phase
+    fam_log(f"phase lm_families: {out['seconds']:.1f} s")
     return out, rows
 
 
 def lm_only():
-    """Phases 1-2 done: the lm phase alone, then its kernels line."""
-    out, rows = lm_phase()
+    """Phases 1-2 done: the lm and lm_families phases alone, then their
+    kernels line."""
+    out, rows, store = lm_phase()
+    fam, fam_rows = lm_families_phase(store)
     res = {k: dict(r, rag=dict(r)) for k, r in rows.items()}
-    print(json.dumps({"kernels": kernels_line(res, out["launches"])}),
-          flush=True)
+    for k, r in fam_rows.items():
+        res[k]["rag_moe"] = r
+    by_path = {"lm": out["launches"], "lm_moe": fam["launches"]}
+    print(json.dumps({"kernels": kernels_line(res, out["launches"],
+                                              by_path)}), flush=True)
 
 
 def kernels_line(res, launches, by_path=None):
@@ -3545,7 +4143,7 @@ def kernels_line(res, launches, by_path=None):
         refuse_below_bound(r, kname)
         extra = {k: r[k] for k in ("device_ms", "exact", "prefilter",
                                    "paged", "program", "paged_program",
-                                   "sharded", "rag")
+                                   "sharded", "rag", "rag_moe")
                  if k in r}
         if by_path is not None:
             extra["launches_by_path"] = {p: c[kname]
@@ -3655,13 +4253,16 @@ def run(args):
     del ctx, pools, eng, queries
     gc.collect()
     torch.cuda.empty_cache()
-    out["lm"], lm_rows = lm_phase()
-    for kname, row in lm_rows.items():
-        res[kname]["rag"] = row
-        res[kname]["max_abs_err"] = max(res[kname]["max_abs_err"],
-                                        row["max_abs_err"])
-        res[kname]["ids_equal"] = res[kname]["ids_equal"] \
-            and row["ids_equal"]
+    out["lm"], lm_rows, store = lm_phase()
+    out["lm_families"], fam_rows = lm_families_phase(store)
+    del store
+    for key, rows in (("rag", lm_rows), ("rag_moe", fam_rows)):
+        for kname, row in rows.items():
+            res[kname][key] = row
+            res[kname]["max_abs_err"] = max(res[kname]["max_abs_err"],
+                                            row["max_abs_err"])
+            res[kname]["ids_equal"] = res[kname]["ids_equal"] \
+                and row["ids_equal"]
     res["ivf_scan_topk"]["sharded"] = out["sharded"]["k1_row"]
     by_path = {"main": out["launches"],
                "hybrid": out["hybrid"]["launches"],
@@ -3674,7 +4275,8 @@ def run(args):
                "resident_rebuild": out["rebuild"]["resident"]["launches"],
                "sharded": out["sharded"]["launches"],
                "fleet": out["fleet"]["launches"],
-               "lm": out["lm"]["launches"]}
+               "lm": out["lm"]["launches"],
+               "lm_moe": out["lm_families"]["launches"]}
     kernels = kernels_line(res, out["launches"], by_path)
     log(json.dumps({"main": {k: v for k, v in out.items()
                              if k != "launches"}}))
@@ -3693,8 +4295,10 @@ def main():
                     help="check and time the kernels on an index built in "
                          "memory (no SQLite), print the kernels line, stop")
     ap.add_argument("--lm-only", action="store_true",
-                    help="build, then the lm phase alone (llama3-8b with "
-                         "MicroNN retrieval), print its kernels line, stop")
+                    help="build, then the lm and lm_families phases alone "
+                         "(llama3-8b and phi3.5-moe with MicroNN "
+                         "retrieval, the recurrent, xLSTM and whisper "
+                         "families), print their kernels line, stop")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch is driven "
                          "(another tree's, to compare two versions in one "

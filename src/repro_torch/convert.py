@@ -19,8 +19,11 @@ keys may be absent (float32-only index).
 `params_from_arrays` does the same for the parameters of
 `repro.models.init_model`, flattened to numpy arrays keyed by tree path
 ("embed/table", "stack/p0/attn/wq" with its leading stack_count axis,
-"tail/t0/norm1/scale", ...; bfloat16 leaves may stay `ml_dtypes`
-bfloat16 or be widened to float32), and returns the port's Transformer.
+"tail/t0/norm1/scale", "stack/p0/moe/router", "stack/p0/rnn/conv_w",
+"stack/p7/cell/r_z", "stack/p0/cross/wk", "enc_stack/p0/mlp/wi/w" with
+its leading encoder_layers axis, "enc_pos/table", ...; bfloat16 leaves
+may stay `ml_dtypes` bfloat16 or be widened to float32), and returns the
+port's Transformer.
 """
 from __future__ import annotations
 
@@ -92,20 +95,10 @@ def params_from_arrays(arrays: Dict[str, np.ndarray], cfg, device):
     from .models import transformer
     model = transformer.init_model(cfg, abstract=True).to_empty(
         device=torch.device(device))
-    period = len(cfg.stack_period)
     sources = {}
     for key, a in arrays.items():
-        parts = key.split("/")
-        if parts[0] == "stack":
-            j = int(parts[1][1:])
-            for r in range(np.shape(a)[0]):
-                sources[f"layers.{r * period + j}." + ".".join(parts[2:])] \
-                    = (key, a[r])
-        elif parts[0] == "tail":
-            i = cfg.stack_count * period + int(parts[1][1:])
-            sources[f"layers.{i}." + ".".join(parts[2:])] = (key, a)
-        else:
-            sources[".".join(parts)] = (key, a)
+        for name, leaf in port_names(key, a, cfg):
+            sources[name] = (key, leaf)
     names = dict(model.named_parameters())
     missing = sorted(set(names) - set(sources))
     extra = sorted(set(sources) - set(names))
@@ -122,3 +115,25 @@ def params_from_arrays(arrays: Dict[str, np.ndarray], cfg, device):
                                  f"expects {tuple(p.shape)}")
             p.copy_(t.to(p.dtype))
     return model
+
+
+def port_names(key: str, a, cfg):
+    """(port parameter name, leaf) pairs of one JAX tree-path key: a
+    stacked leaf gives one per repeat ("stack/p<j>/..." -> "layers.<r *
+    period + j>...", "enc_stack/p0/..." -> "enc_layers.<r>..."), a tail
+    leaf "tail/t<j>/..." its layer after the stack, any other the same
+    path with dots."""
+    parts = key.split("/")
+    rest = ".".join(parts[2:])
+    period = len(cfg.stack_period)
+    if parts[0] == "stack":
+        j = int(parts[1][1:])
+        return [(f"layers.{r * period + j}.{rest}", a[r])
+                for r in range(np.shape(a)[0])]
+    if parts[0] == "enc_stack":
+        return [(f"enc_layers.{r}.{rest}", a[r])
+                for r in range(np.shape(a)[0])]
+    if parts[0] == "tail":
+        i = cfg.stack_count * period + int(parts[1][1:])
+        return [(f"layers.{i}.{rest}", a)]
+    return [(".".join(parts), a)]

@@ -40,7 +40,9 @@ def build_rag_datastore(cfg, n: int = 2048, seed: int = 1, *,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--arch", default="llama3-8b",
+                    help="any of the ten registered archs or an alias "
+                         "(its smoke config is served)")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--slots", type=int, default=2)

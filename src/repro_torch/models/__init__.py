@@ -1,7 +1,10 @@
-"""Model zoo (port of repro.models): the attention-only dense family."""
-from . import attention, decode, layers, transformer
+"""Model zoo (port of repro.models): all ten registered architectures --
+attention (dense, local, cross), mixture-of-experts, RG-LRU and xLSTM
+layers, whisper's encoder."""
+from . import attention, decode, layers, moe, recurrent, transformer, xlstm
 from .transformer import Transformer, forward, init_model
 from .decode import decode_step, init_cache, prefill
 
-__all__ = ["attention", "decode", "layers", "transformer", "Transformer",
-           "forward", "init_model", "decode_step", "init_cache", "prefill"]
+__all__ = ["attention", "decode", "layers", "moe", "recurrent",
+           "transformer", "xlstm", "Transformer", "forward", "init_model",
+           "decode_step", "init_cache", "prefill"]

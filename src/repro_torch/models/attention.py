@@ -13,7 +13,10 @@ Decode caches are ring buffers: a cache of W slots holds the last W
 attention uses W = s_max, local attention W = window. The port writes the
 ring slot in place (the reference returns an updated copy).
 
-Cross-attention (whisper's decoder) waits for ROADMAP Queue A 16a-ii.
+Cross-attention (whisper's decoder): `attention(..., kv_x=)` over the
+encoder's output with no mask and no rotation; decode reads the encoder's
+K/V precomputed once per prompt (`precompute_cross_kv`) from the layer's
+cache (`xk`, `xv`).
 """
 from __future__ import annotations
 
@@ -23,8 +26,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..core.types import resolve_device
-from .layers import InitCtx, einsum, einsum_f32, rope_tables, rotate, softcap
+from .layers import (InitCtx, cache_device, einsum, einsum_f32, rope_tables,
+                     rotate, softcap)
 
 NEG_INF = -2.0e38
 
@@ -101,10 +104,12 @@ def _gqa_out(p, scores, v):
     return _out_proj(p, ctx.reshape(b, s, hq, v.shape[-1]))
 
 
-def _attn_block(p, q, k, v, qpos, kpos, *, scale, cap, causal, window):
+def _attn_block(p, q, k, v, qpos, kpos, *, scale, cap, causal, window,
+                is_cross=False):
     """One q-chunk: q [B,Sc,Hq,hd] vs full k/v [B,T,Hkv,hd] -> [B,Sc,D].
     T > KV_CHUNK (and a multiple of it) takes the online softmax over KV
-    chunks (the flash-attention recurrence, exact up to rounding)."""
+    chunks (the flash-attention recurrence, exact up to rounding).
+    Cross-attention (`is_cross`) masks nothing."""
     t = k.shape[1]
     hq = q.shape[2]
     kx = _expand_kv(k, hq)
@@ -113,6 +118,8 @@ def _attn_block(p, q, k, v, qpos, kpos, *, scale, cap, causal, window):
     def block_scores(k_blk, kp_blk):
         s = einsum_f32("bshk,bthk->bhst", q, k_blk) * scale
         s = softcap(s, cap)
+        if is_cross:
+            return s
         qp = qpos[:, None, :, None]
         kp = kp_blk[:, None, None, :]
         ok = torch.ones((1, 1) + s.shape[-2:], dtype=torch.bool,
@@ -151,24 +158,38 @@ def _attn_block(p, q, k, v, qpos, kpos, *, scale, cap, causal, window):
 
 def attention(p, x, positions, *, theta: float = 1e4, causal: bool = True,
               window: Optional[int] = None, attn_softcap: float = 0.0,
-              use_rope: bool = True, q_scale: Optional[float] = None,
+              use_rope: bool = True, kv_x: Optional[torch.Tensor] = None,
+              q_scale: Optional[float] = None,
               chunk: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence self-attention (prefill). x: [B,S,D]."""
-    q, k, v = _qkv(p, x)
-    if use_rope:
+    """Full-sequence attention (prefill). x: [B,S,D]; with `kv_x`
+    [B,T,D] (the encoder's output) cross-attention: q from x, k/v from
+    kv_x, unrotated and unmasked."""
+    if kv_x is None:
+        q, k, v = _qkv(p, x)
+        kv_pos = positions
+    else:
+        q = einsum("bsd,dhk->bshk", x, p.wq)
+        k, v = precompute_cross_kv(p, kv_x)
+        if p.bq is not None:
+            q = q + p.bq
+        kv_pos = torch.arange(kv_x.shape[1], dtype=torch.int32,
+                              device=x.device)[None].expand(kv_x.shape[:2])
+    if use_rope and kv_x is None:
         cos, sin = rope_tables(positions, q.shape[-1], theta)
         q, k = rotate(q, cos, sin), rotate(k, cos, sin)
     hd = q.shape[-1]
     scale = q_scale if q_scale is not None else hd ** -0.5
     b, s = q.shape[:2]
     chunk = chunk or ATTN_CHUNK
-    kw = dict(scale=scale, cap=attn_softcap, causal=causal, window=window)
+    kw = dict(scale=scale, cap=attn_softcap, causal=causal, window=window,
+              is_cross=kv_x is not None)
     if s <= chunk or s % chunk:
-        return _attn_block(p, q, k, v, positions, positions, **kw)
+        # whisper's 1,500 frames take this unchunked branch
+        return _attn_block(p, q, k, v, positions, kv_pos, **kw)
     out = torch.zeros((b, s, p.wo.shape[-1]), dtype=x.dtype, device=x.device)
     for c0 in range(0, s, chunk):
         piece = _attn_block(p, q[:, c0:c0 + chunk], k, v,
-                            positions[:, c0:c0 + chunk], positions, **kw)
+                            positions[:, c0:c0 + chunk], kv_pos, **kw)
         out[:, c0:c0 + chunk] = piece.to(out.dtype)
     return out
 
@@ -186,8 +207,9 @@ class KVCacheSpec:
 
 def init_kv_cache(batch: int, spec: KVCacheSpec, dtype=torch.bfloat16,
                   device=None) -> dict:
-    """An empty ring cache on `device` (None means the card)."""
-    device = resolve_device(device)
+    """An empty ring cache on `device` (None means the card; "meta"
+    allocates nothing)."""
+    device = cache_device(device)
     shape = (batch, spec.slots, spec.n_kv, spec.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -232,3 +254,30 @@ def attention_decode(p, x, cache, pos: int, *, theta: float = 1e4,
                          torch.full((), NEG_INF, device=scores.device))
     probs = torch.softmax(scores, dim=-1)
     return _gqa_out(p, probs, cv), cache
+
+
+def init_cross_cache(enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> dict:
+    """Whisper's decoder: the precomputed encoder K/V act as a static
+    cache."""
+    return {"k": enc_kv[0], "v": enc_kv[1]}
+
+
+def cross_attention_decode(p, x, cross_cache, q_scale=None):
+    """x [B,1,D] attends to every encoder position of cross_cache's k/v
+    [B,T,Hkv,hd] (no mask, no rotation)."""
+    q = einsum("bsd,dhk->bshk", x, p.wq)
+    if p.bq is not None:
+        q = q + p.bq
+    k, v = cross_cache["k"], cross_cache["v"]
+    scale = q_scale if q_scale is not None else q.shape[-1] ** -0.5
+    probs = torch.softmax(_gqa_scores(q, k, scale, 0.0), dim=-1)
+    return _gqa_out(p, probs, v)
+
+
+def precompute_cross_kv(p, enc_out):
+    """The encoder output's K/V [B,T,Hkv,hd] for a cross-attention layer."""
+    k = einsum("bsd,dhk->bshk", enc_out, p.wk)
+    v = einsum("bsd,dhk->bshk", enc_out, p.wv)
+    if p.bk is not None:
+        k, v = k + p.bk, v + p.bv
+    return k, v

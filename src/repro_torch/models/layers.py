@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -56,6 +57,14 @@ class InitCtx:
                                   generator=self.generator)
             v = v.mul_(scale).to(dtype)
         return nn.Parameter(v, requires_grad=False)
+
+
+def cache_device(device) -> torch.device:
+    """A cache's device: "meta" (shapes and dtypes only, for
+    configs.inputs.decode_specs) or resolve_device's answer."""
+    if str(device) == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
 
 
 def promote(a: torch.Tensor, b: torch.Tensor):
@@ -194,17 +203,25 @@ def init_mlp(ctx: InitCtx, dim: int, d_ff: int, act: str,
     return MLP(ctx, dim, d_ff, act, bias=bias)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu`'s default, the tanh approximation, op by op as the
+    reference forms it: in bfloat16 each op rounds, as XLA's do (the fused
+    F.gelu rounds once and differs in ~8 % of bfloat16 outputs)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=torch.float32).to(x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x))))
+    return x * cdf
+
+
 def mlp(p, x, act: str):
-    # jax.nn.gelu defaults to the tanh approximation
     h = dense(p.wi, x)
     if act == "silu_glu":
         h = F.silu(dense(p.wg, x)) * h
     elif act == "gelu_glu":
-        h = F.gelu(dense(p.wg, x), approximate="tanh") * h
+        h = gelu(dense(p.wg, x)) * h
     elif act == "relu2":  # nemotron/minitron squared ReLU
         h = torch.square(F.relu(h))
     else:
-        h = F.gelu(h, approximate="tanh")
+        h = gelu(h)
     return dense(p.wo, h)
 
 
@@ -246,6 +263,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [B, S, H, hd]; positions: [B, S] absolute token positions."""
     return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def associative_scan(fn, elems, dim: int = 1):
+    """Inclusive scan of the associative `fn` over `dim` of every tensor in
+    the tuple `elems` (`lax.associative_scan`'s result): a log-depth
+    doubling scan (Hillis-Steele), where round r combines each element
+    with the one 2^r before it. The combine tree differs from XLA's, so
+    float results agree with the reference up to summation order."""
+    n = elems[0].shape[dim]
+    step = 1
+    while step < n:
+        lo = tuple(e.narrow(dim, 0, n - step) for e in elems)
+        hi = tuple(e.narrow(dim, step, n - step) for e in elems)
+        elems = tuple(torch.cat([e.narrow(dim, 0, step), c], dim)
+                      for e, c in zip(elems, fn(lo, hi)))
+        step *= 2
+    return elems
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

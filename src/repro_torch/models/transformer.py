@@ -1,19 +1,21 @@
-"""Model assembly for the attention-only dense family (port of
-repro.models.transformer).
+"""Model assembly: one composable stack covering all ten registered
+architectures (port of repro.models.transformer).
 
-Layer kinds here: attn | local (sliding window), each with a dense MLP and
-gemma2's optional post-norms. `Transformer` holds one `Layer` per model
-layer in an `nn.ModuleList`, in layer order: layer r * len(pattern) + j is
-the reference's `params["stack"]["p<j>"]` at index r, and the layers after
-stack_count * len(pattern) are its `params["tail"]["t<j>"]`.
+Layer kinds (cfg.pattern): attn | local | rglru | mlstm | slstm | xattn
+(xattn = a decoder layer with cross-attention to whisper's encoder).
+attn, local, xattn and rglru layers carry a dense MLP or, with
+n_experts, a mixture of experts; gemma2's post-norms are optional.
+`Transformer` holds one `Layer` per model layer in an `nn.ModuleList`, in
+layer order: layer r * len(pattern) + j is the reference's
+`params["stack"]["p<j>"]` at index r, and the layers after
+stack_count * len(pattern) are its `params["tail"]["t<j>"]`. Whisper's
+encoder layers are `enc_layers` (the reference's `enc_stack/p0`).
 
-Not here yet (ROADMAP Queue A 16a-ii): the kinds rglru, mlstm, slstm and
-xattn, mixture-of-experts MLPs and the whisper encoder. Building or
-running a config that needs one raises NotImplementedError by name.
-`loss_fn` waits for the training half (16b).
+`loss_fn` waits for the training half (ROADMAP Queue A 16b).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -22,35 +24,14 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..core.types import resolve_device
 from . import attention as attn_lib
+from . import moe as moe_lib
+from . import recurrent as rec_lib
+from . import xlstm as xlstm_lib
 from .layers import (InitCtx, Table, apply_norm, init_embed, init_mlp,
                      init_norm, init_unembed, mlp, promote, softcap,
                      unembed_logits)
 
-SUPPORTED_KINDS = ("attn", "local")
-_LATER = "ROADMAP Queue A 16a-ii"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError naming what this slice does not carry."""
-    for kind in cfg.layer_kinds():
-        if kind not in SUPPORTED_KINDS:
-            raise NotImplementedError(
-                f"layer kind {kind!r} of {cfg.name} is not ported yet "
-                f"({_LATER})")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"MoE MLP (n_experts={cfg.n_experts}) of {cfg.name} is not "
-            f"ported yet ({_LATER})")
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"encoder (encoder_layers={cfg.encoder_layers}) of {cfg.name} "
-            f"is not ported yet ({_LATER})")
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in SUPPORTED_KINDS:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet ({_LATER})")
+KINDS = ("attn", "local", "xattn", "rglru", "mlstm", "slstm")
 
 
 # ---------------------------------------------------------------------------
@@ -58,32 +39,50 @@ def _check_kind(kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 class Layer(nn.Module):
-    """One decoder layer: norm1 -> attention (-> norm1_post) -> residual,
-    norm2 -> MLP (-> norm2_post) -> residual."""
+    """One layer: norm1 -> its core (attention, RG-LRU or an xLSTM cell;
+    -> norm1_post) -> residual; xattn: normx -> cross-attention ->
+    residual; then norm2 -> MLP or MoE (-> norm2_post) -> residual.
+    Absent parts are None."""
 
     def __init__(self, ctx: InitCtx, cfg: ModelConfig, kind: str):
         super().__init__()
-        _check_kind(kind)
-        if cfg.n_experts:
-            check_supported(cfg)
+        if kind not in KINDS:
+            raise ValueError(kind)
         d = cfg.d_model
         self.kind = kind
         self.norm1 = init_norm(ctx, cfg.norm, d)
-        self.attn = attn_lib.init_attention(
-            ctx, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-            bias=cfg.attn_bias)
-        if cfg.d_ff > 0:
-            self.norm2 = init_norm(ctx, cfg.norm, d)
-            self.mlp = init_mlp(ctx, d, cfg.d_ff, cfg.mlp_act,
-                                bias=cfg.attn_bias)
+        self.attn = self.normx = self.cross = self.rnn = self.cell = None
+        if kind in ("attn", "local", "xattn"):
+            self.attn = attn_lib.init_attention(
+                ctx, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                bias=cfg.attn_bias)
+            if kind == "xattn":
+                self.normx = init_norm(ctx, cfg.norm, d)
+                self.cross = attn_lib.init_attention(
+                    ctx, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                    bias=cfg.attn_bias)
+        elif kind == "rglru":
+            self.rnn = rec_lib.init_rglru_block(ctx, d, cfg.d_rnn or d,
+                                                cfg.conv_width)
+        elif kind == "mlstm":
+            self.cell = xlstm_lib.init_mlstm_block(ctx, d, cfg.num_heads,
+                                                   cfg.mlstm_proj_factor)
         else:
-            self.norm2 = self.mlp = None
+            self.cell = xlstm_lib.init_slstm_block(ctx, d, cfg.num_heads)
+        self.norm2 = self.mlp = self.moe = None
+        if kind in ("attn", "local", "xattn", "rglru") and cfg.d_ff > 0:
+            self.norm2 = init_norm(ctx, cfg.norm, d)
+            if cfg.n_experts:
+                self.moe = moe_lib.init_moe(ctx, d, cfg.d_ff, cfg.n_experts,
+                                            cfg.mlp_act)
+            else:
+                self.mlp = init_mlp(ctx, d, cfg.d_ff, cfg.mlp_act,
+                                    bias=cfg.attn_bias)
+        self.norm1_post = self.norm2_post = None
         if cfg.post_norm:
             self.norm1_post = init_norm(ctx, cfg.norm, d)
-            self.norm2_post = init_norm(ctx, cfg.norm, d) \
-                if cfg.d_ff > 0 else None
-        else:
-            self.norm1_post = self.norm2_post = None
+            if self.norm2 is not None:
+                self.norm2_post = init_norm(ctx, cfg.norm, d)
 
 
 def init_layer(ctx: InitCtx, cfg: ModelConfig, kind: str) -> Layer:
@@ -92,11 +91,11 @@ def init_layer(ctx: InitCtx, cfg: ModelConfig, kind: str) -> Layer:
 
 class Transformer(nn.Module):
     """Parameters of one model, with the reference's leaf names: embed,
-    final_norm, unembed (untied), pos_emb (learned positions), layers."""
+    final_norm, unembed (untied), pos_emb (learned positions), enc_layers
+    / enc_norm / enc_pos (an encoder), layers."""
 
     def __init__(self, cfg: ModelConfig, ctx: InitCtx):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.embed = init_embed(ctx, cfg.vocab_size, cfg.d_model)
         self.final_norm = init_norm(ctx, cfg.norm, cfg.d_model)
@@ -106,6 +105,14 @@ class Transformer(nn.Module):
         if cfg.pos_kind == "learned":
             self.pos_emb = Table(ctx, cfg.max_position, cfg.d_model,
                                  scale=0.02)
+        self.enc_layers = self.enc_norm = self.enc_pos = None
+        if cfg.encoder_layers:
+            enc_cfg = dataclasses.replace(cfg, n_experts=0)
+            self.enc_layers = nn.ModuleList(
+                init_layer(ctx, enc_cfg, "attn")
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = init_norm(ctx, cfg.norm, cfg.d_model)
+            self.enc_pos = Table(ctx, cfg.enc_seq, cfg.d_model, scale=0.02)
         self.layers = nn.ModuleList(
             init_layer(ctx, cfg, kind) for kind in cfg.layer_kinds())
 
@@ -131,27 +138,49 @@ def init_model(cfg: ModelConfig,
 # Full-sequence layer application (prefill)
 # ---------------------------------------------------------------------------
 
+def feed_forward(cfg: ModelConfig, p, x):
+    """The layer's second half: x + (norm2 -> MLP or MoE -> norm2_post)
+    -> (x, aux); (x, 0) where the layer has none."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if p.norm2 is None:
+        return x, aux
+    h2 = apply_norm(cfg.norm, p.norm2, x)
+    if p.moe is not None:
+        ff, aux = moe_lib.moe(p.moe, h2, top_k=cfg.top_k,
+                              capacity_factor=cfg.capacity_factor,
+                              act=cfg.mlp_act)
+    else:
+        ff = mlp(p.mlp, h2, cfg.mlp_act)
+    if cfg.post_norm:
+        ff = apply_norm(cfg.norm, p.norm2_post, ff)
+    return x + ff, aux
+
+
 def apply_layer(cfg: ModelConfig, kind: str, p, x, positions,
                 enc_out=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (x, aux). x: [B, S, D]."""
-    _check_kind(kind)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg.norm, p.norm1, x)
-    core = attn_lib.attention(
-        p.attn, h, positions, theta=cfg.rope_theta, causal=True,
-        window=cfg.window if kind == "local" else None,
-        attn_softcap=cfg.attn_softcap, use_rope=cfg.pos_kind == "rope",
-        q_scale=cfg.q_scale)
+    if kind in ("attn", "local", "xattn"):
+        core = attn_lib.attention(
+            p.attn, h, positions, theta=cfg.rope_theta, causal=True,
+            window=cfg.window if kind == "local" else None,
+            attn_softcap=cfg.attn_softcap, use_rope=cfg.pos_kind == "rope",
+            q_scale=cfg.q_scale)
+    elif kind == "rglru":
+        core = rec_lib.rglru_block(p.rnn, h)
+    elif kind == "mlstm":
+        core = xlstm_lib.mlstm_block_chunked(
+            p.cell, h, min(cfg.mlstm_chunk, h.shape[1]))
+    else:
+        core = xlstm_lib.slstm_block(p.cell, h, cfg.num_heads)
     if cfg.post_norm:
         core = apply_norm(cfg.norm, p.norm1_post, core)
     x = x + core
-    if p.norm2 is not None:
-        h2 = apply_norm(cfg.norm, p.norm2, x)
-        ff = mlp(p.mlp, h2, cfg.mlp_act)
-        if cfg.post_norm:
-            ff = apply_norm(cfg.norm, p.norm2_post, ff)
-        x = x + ff
-    return x, aux
+    if kind == "xattn":
+        hx = apply_norm(cfg.norm, p.normx, x)
+        x = x + attn_lib.attention(p.cross, hx, positions, kv_x=enc_out,
+                                   use_rope=False, causal=False)
+    return feed_forward(cfg, p, x)
 
 
 def _run_stack(cfg: ModelConfig, params, x, positions, enc_out=None,
@@ -166,8 +195,26 @@ def _run_stack(cfg: ModelConfig, params, x, positions, enc_out=None,
     return x, aux
 
 
+def _encode(cfg: ModelConfig, params, frames):
+    """Whisper's encoder over the stub frontend's frame embeddings
+    [B, T, D]: learned positions, non-causal unrotated self-attention and
+    a dense MLP per layer, then enc_norm."""
+    x = frames.to(params.embed.table.dtype) \
+        + params.enc_pos.table[None, :frames.shape[1]].to(frames.dtype)
+    pos = torch.arange(frames.shape[1], dtype=torch.int32,
+                       device=x.device)[None].expand(frames.shape[:2])
+    for layer in params.enc_layers:
+        h = apply_norm(cfg.norm, layer.norm1, x)
+        x = x + attn_lib.attention(layer.attn, h, pos, causal=False,
+                                   use_rope=False)
+        h2 = apply_norm(cfg.norm, layer.norm2, x)
+        x = x + mlp(layer.mlp, h2, cfg.mlp_act)
+    return apply_norm(cfg.norm, params.enc_norm, x)
+
+
 def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
-    """-> (x [B,S,D], positions [B,S], enc_out (None), text_offset)."""
+    """-> (x [B,S,D], positions [B,S], enc_out (the encoder's output, or
+    None), text_offset)."""
     x = params.embed.table[batch["tokens"].long()]
     if cfg.emb_scale:
         # the sqrt(d) constant is rounded to the activation dtype first
@@ -177,12 +224,14 @@ def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
         img = batch["img"].to(x.dtype)
         x = torch.cat([img, x], dim=1)
         offset = img.shape[1]
+    enc_out = _encode(cfg, params, batch["frames"]) \
+        if cfg.encoder_layers else None
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None] \
         .expand(x.shape[0], s)
     if cfg.pos_kind == "learned":
         x = x + params.pos_emb.table[None, :s].to(x.dtype)
-    return x, positions, None, offset
+    return x, positions, enc_out, offset
 
 
 def logits_from_hidden(cfg: ModelConfig, params, h):

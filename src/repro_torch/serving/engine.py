@@ -14,8 +14,18 @@ token at a time through a full-batch decode step whose cache updates are
 kept for the admitted slot only (`_step_slot`); every decode step uses one
 position, the largest of the live slots' (`step`); `run()` returns an
 empty list. The port's decode writes the cache in place, so `_step_slot`
-saves the ring entries at the step's slot and puts the other slots' back,
+saves what the step will write -- a ring entry's slot at the step's
+position, a recurrent state whole -- and puts the other slots' back,
 which keeps exactly slot s's update, as the reference's copy does.
+Whisper's encoder K/V (`xk`, `xv`) are never written by decode and stay
+as `_reset_slot` leaves them (zero, as the reference's fresh cache).
+
+One reference defect is not carried over: the reference's `_reset_slot`
+/ `_step_slot` slice every cache leaf on axis 1, which is the batch only
+for stacked entries; on a tail entry (batch on axis 0: recurrentgemma's
+two trailing RG-LRU layers) they write column s of every slot's state.
+Here each entry is sliced on its own batch dim (1 stacked, 0 tail), so
+every slot keeps its own state.
 """
 from __future__ import annotations
 
@@ -97,8 +107,8 @@ class ServeEngine:
                 self.slot_pos[s] = len(req.prompt) - 1
 
     def _caches(self):
-        """Every layer cache dict ({"k", "v", "pos"}, batch on dim 1 of a
-        stacked entry, dim 0 of a tail entry), with its batch dim."""
+        """Every layer cache dict, with its batch dim (1 in a stacked
+        entry, 0 in a tail entry)."""
         for name, c in self.cache.items():
             yield c, 1 if name.startswith("p") else 0
 
@@ -109,23 +119,33 @@ class ServeEngine:
 
     def _step_slot(self, s: int, tok: int, pos: int):
         """Feed one prompt token through slot s only: the full batch runs,
-        and the other slots' entries at the ring slot it writes are put
-        back. Nothing here waits for the device: the batch's tokens are
-        formed on it, and the entries go back by whole-slice copies."""
+        and the other slots' entries that it writes are put back -- a
+        ring's slot at `pos`, a recurrent state whole. Nothing here waits
+        for the device: the batch's tokens are formed on it, and the
+        entries go back by whole-slice copies."""
         saved = []
         for c, bd in self._caches():
-            w = c["pos"].shape[bd + 1]
-            saved.append({key: t.select(bd + 1, pos % w).clone()
-                          for key, t in c.items()})
+            saved.append({key: view.clone()
+                          for key, view in self._written(c, bd, pos)})
         toks = self._toks_dev.clone()
         toks[s, 0] = tok
         self._decode(self.params, self.cache, toks, pos)
         for (c, bd), old in zip(self._caches(), saved):
+            for key, view in self._written(c, bd, pos):
+                old[key].select(bd, s).copy_(view.select(bd, s))
+                view.copy_(old[key])
+
+    @staticmethod
+    def _written(c, bd: int, pos: int):
+        """(key, view) of what one decode step at `pos` writes in the
+        layer cache c: a ring's entries at slot pos % W, a recurrent
+        state's every entry (not the encoder's xk / xv)."""
+        if "pos" in c:
             w = c["pos"].shape[bd + 1]
-            for key, t in c.items():
-                ring = t.select(bd + 1, pos % w)
-                old[key].select(bd, s).copy_(ring.select(bd, s))
-                ring.copy_(old[key])
+            for key in decode_lib.RING_KEYS:
+                yield key, c[key].select(bd + 1, pos % w)
+        else:
+            yield from c.items()
 
     # -- decode loop ----------------------------------------------------------
     def step(self) -> Dict[int, int]:

@@ -1,15 +1,30 @@
-"""The port's dense model zoo against the JAX package's.
+"""The port's model zoo against the JAX package's, on all ten archs.
 
 The JAX `init_model` parameters are carried into the port with
-`convert.params_from_arrays`; the same tokens (and pixtral's image prefix)
-then run through both packages' `forward`, `decode_step` (8 steps) and
-`prefill`, for the smoke configs of llama3-8b, gemma2-27b, starcoder2-15b,
-minitron-4b and pixtral-12b, in float32 and bfloat16.
+`convert.params_from_arrays`; the same tokens (pixtral's image prefix,
+whisper's frames) then run through both packages' `forward`,
+`decode_step` (8 steps) and `prefill`, for the smoke configs of every
+registered architecture, in float32 and bfloat16 (xlstm-350m, the ssm
+family, in float32 only, as the reference's own decode test runs it).
+MoE configs lift the capacity (capacity_factor = n_experts) so the
+forward drops nothing and decode reproduces it, as
+tests/test_models.py does; tests/test_torch_families.py holds the drops.
 
 Tolerances: float32 configs atol 1e-4, rtol 1e-4 (float32 sums in other
 orders); bfloat16 configs atol 0.15, rtol 0.1 (the reference's own
 decode-vs-forward tolerance: one bfloat16 rounding of an activation moves
 a logit by up to ~2^-8 of its size, and differences compound over layers).
+xlstm-350m's float32 runs take the reference's own float32 tolerance for
+it, atol 1e-4, rtol 0.1 (tests/test_models.py): its smoke stack moves
+its logits by ~2e-4 under a 1e-7 relative change of one input
+(test_xlstm_stack_amplifies_rounding), so no other summation order meets
+rtol 1e-4; tests/test_torch_families.py holds its blocks to 1e-5.
+
+The JAX side runs jitted in float32 (one compile per config) and op by
+op in bfloat16: jit fuses bfloat16 chains and keeps float32 between their
+ops, which moves grok-1's and whisper's logits by up to 0.28 from the
+reference's op-by-op result (beyond the tolerance), while the port
+rounds where the reference's ops do.
 """
 import dataclasses
 
@@ -47,12 +62,21 @@ jforward = jax.jit(_jforward, static_argnums=0,
                    static_argnames=("last_logits_only",))
 jprefill = jax.jit(_jprefill, static_argnums=(0, 3))
 jfill = jax.jit(_jfill, static_argnums=(0, 3))
+_EAGER = {jdecode_step: _jdecode_step, jforward: _jforward,
+          jprefill: _jprefill, jfill: _jfill}
 
-DENSE = ["llama3-8b", "gemma2-27b", "starcoder2-15b", "minitron-4b",
-         "pixtral-12b"]
-# arch -> what this slice leaves for ROADMAP Queue A 16a-ii
-LATER = {"recurrentgemma-2b": "rglru", "xlstm-350m": "lstm",
-         "whisper-medium": "xattn", "phi3.5-moe": "MoE", "grok-1-314b": "MoE"}
+
+def jax_fn(fn, dtype):
+    """The JAX function as the parity runs call it: jitted in float32, op
+    by op in bfloat16 (module docstring)."""
+    return fn if dtype == "float32" else _EAGER[fn]
+
+ALL = ["llama3-8b", "gemma2-27b", "starcoder2-15b", "minitron-4b",
+       "pixtral-12b", "phi3.5-moe", "grok-1-314b", "recurrentgemma-2b",
+       "xlstm-350m", "whisper-medium"]
+# (arch, dtype) pairs of the parity runs: the ssm family in float32 only
+RUNS = [(n, dt) for n in ALL for dt in ("float32", "bfloat16")
+        if not (n == "xlstm-350m" and dt == "bfloat16")]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,9 +96,10 @@ def jax_param_arrays(params):
             for path, leaf in leaves}
 
 
-def _tol(dtype):
-    return dict(atol=1e-4, rtol=1e-4) if dtype == "float32" \
-        else dict(atol=0.15, rtol=0.1)
+def _tol(dtype, family=None):
+    if dtype != "float32":
+        return dict(atol=0.15, rtol=0.1)
+    return dict(atol=1e-4, rtol=0.1 if family == "ssm" else 1e-4)
 
 
 _MODELS = {}
@@ -84,10 +109,12 @@ def _pair(name, dtype, seed=1):
     """(JAX cfg, JAX params, port cfg, port model) on the smoke config."""
     key = (name, dtype, seed)
     if key not in _MODELS:
+        base = smoke_config(get_arch(name).config)
+        extra = dict(capacity_factor=float(base.n_experts)) \
+            if base.n_experts else {}
         jcfg = dataclasses.replace(j_smoke(j_get_arch(name).config),
-                                   dtype=dtype, remat=False)
-        tcfg = dataclasses.replace(smoke_config(get_arch(name).config),
-                                   dtype=dtype, remat=False)
+                                   dtype=dtype, remat=False, **extra)
+        tcfg = dataclasses.replace(base, dtype=dtype, remat=False, **extra)
         params, _ = jinit_model(jcfg, jax.random.PRNGKey(seed))
         model = convert.params_from_arrays(jax_param_arrays(params), tcfg,
                                            "cpu")
@@ -104,6 +131,11 @@ def _batches(cfg, s=8, seed=0):
                ).astype(np.float32)
         jb["img"] = jnp.asarray(img, jnp.bfloat16)
         tb["img"] = torch.from_numpy(img).to(torch.bfloat16)
+    if cfg.encoder_layers:
+        frames = (0.1 * rng.normal(size=(2, cfg.enc_seq, cfg.d_model))
+                  ).astype(np.float32)
+        jb["frames"] = jnp.asarray(frames, jnp.bfloat16)
+        tb["frames"] = torch.from_numpy(frames).to(torch.bfloat16)
     return jb, tb
 
 
@@ -112,8 +144,9 @@ def _np(x):
         else x.float().numpy()
 
 
-def _close(j, t, dtype, what):
-    np.testing.assert_allclose(_np(t), _np(j), err_msg=what, **_tol(dtype))
+def _close(j, t, dtype, what, family=None):
+    np.testing.assert_allclose(_np(t), _np(j), err_msg=what,
+                               **_tol(dtype, family))
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +184,7 @@ def test_param_count_analytic_close(name):
                          for p in jax.tree.leaves(jparams))
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_init_leaves_match_jax_shapes(name):
     """Every JAX leaf has a port parameter of its shape and dtype, and the
     port's own draw follows the reference's recipe."""
@@ -160,25 +193,20 @@ def test_init_leaves_match_jax_shapes(name):
                              abstract=True)
     model = init_model(cfg, 3, device="cpu")
     names = dict(model.named_parameters())
-    period = len(cfg.stack_period)
+    stacked = ("stack/", "enc_stack/")
     for key, leaf in jax_param_arrays_abstract(jparams).items():
-        parts = key.split("/")
-        if parts[0] == "stack":
-            pname = f"layers.{int(parts[1][1:])}." + ".".join(parts[2:])
-            shape = leaf.shape[1:]
-        elif parts[0] == "tail":
-            pname = f"layers.{cfg.stack_count * period + int(parts[1][1:])}" \
-                + "." + ".".join(parts[2:])
-            shape = leaf.shape
-        else:
-            pname, shape = ".".join(parts), leaf.shape
-        p = names[pname]
-        assert tuple(p.shape) == tuple(shape), pname
-        assert str(p.dtype).split(".")[-1] == str(leaf.dtype), pname
+        shape = leaf.shape[1:] if key.startswith(stacked) else leaf.shape
+        for pname, _ in convert.port_names(key, np.empty(leaf.shape[:1]),
+                                           cfg):
+            p = names[pname]
+            assert tuple(p.shape) == tuple(shape), pname
+            assert str(p.dtype).split(".")[-1] == str(leaf.dtype), pname
     assert len(names) == sum(
-        leaf.shape[0] if k.startswith("stack/") else 1
+        leaf.shape[0] if k.startswith(stacked) else 1
         for k, leaf in jax_param_arrays_abstract(jparams).items())
-    wq = model.layers[0].attn.wq.float()
+    first = dict(model.layers[0].named_parameters())
+    wq = next(first[n] for n in ("attn.wq", "rnn.wy", "cell.w_up")
+              if n in first).float()
     bound = 2.0 / cfg.d_model ** 0.5
     assert float(wq.abs().max()) <= bound * (1 + 2 ** -7)
     assert 0.5 < float(wq.std()) * cfg.d_model ** 0.5 < 1.0
@@ -204,18 +232,6 @@ def test_params_from_arrays_refuses_a_missing_or_odd_leaf():
     bad = dict(arrays, **{"embed/table": arrays["embed/table"][:, :8]})
     with pytest.raises(ValueError, match="embed/table"):
         convert.params_from_arrays(bad, tcfg, "cpu")
-
-
-@pytest.mark.parametrize("name", sorted(LATER))
-def test_unported_kinds_raise_by_name(name):
-    cfg = smoke_config(get_arch(name).config)
-    for build in (lambda: init_model(cfg, abstract=True),
-                  lambda: init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError) as e:
-            build()
-        msg = str(e.value)
-        assert "ROADMAP Queue A 16a-ii" in msg
-        assert LATER[name] in msg, msg
 
 
 # ---------------------------------------------------------------------------
@@ -273,75 +289,126 @@ def test_norms_rope_softcap_match_jax(kind, dtype):
 # forward / decode / prefill against JAX
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name,dtype", RUNS)
 def test_forward_and_decode_match_jax(name, dtype):
     jcfg, params, tcfg, model = _pair(name, dtype)
+    fam = tcfg.family
+
+    def close(j, t, what):
+        _close(j, t, dtype, what, fam)
     jb, tb = _batches(jcfg)
-    jl, _, jh, off = jforward(jcfg, params, jb)
+    jfwd = jax_fn(jforward, dtype)
+    jl, _, jh, off = jfwd(jcfg, params, jb)
     off = int(off)
     tl, _, th, toff = forward(tcfg, model, tb)
     assert toff == off
-    _close(jl, tl, dtype, f"{name} forward logits")
-    _close(jh, th, dtype, f"{name} forward hidden")
-    jl1 = jforward(jcfg, params, jb, last_logits_only=True)[0]
+    close(jl, tl, f"{name} forward logits")
+    close(jh, th, f"{name} forward hidden")
+    jl1 = jfwd(jcfg, params, jb, last_logits_only=True)[0]
     tl1 = forward(tcfg, model, tb, last_logits_only=True)[0]
-    _close(jl1, tl1, dtype, f"{name} last logits")
+    close(jl1, tl1, f"{name} last logits")
 
     cdt = (jnp.float32, torch.float32) if dtype == "float32" \
         else (jnp.bfloat16, torch.bfloat16)
     jc = jinit_cache(jcfg, 2, 32, dtype=cdt[0])
     tc = init_cache(tcfg, 2, 32, dtype=cdt[1], device="cpu")
     start = 0
-    if jcfg.num_img_tokens:        # the image prefix goes in by cache fill
-        jc = jfill(jcfg, params, dict(jb, tokens=jb["tokens"][:, :1]), 32)
+    if jcfg.num_img_tokens or jcfg.encoder_layers:
+        # the image prefix / the encoder's frames go in by cache fill
+        jc = jax_fn(jfill, dtype)(
+            jcfg, params, dict(jb, tokens=jb["tokens"][:, :1]), 32)
         tc = fill_cache_from_forward(
             tcfg, model, dict(tb, tokens=tb["tokens"][:, :1]), 32)
         start = 1
+    jdec = jax_fn(jdecode_step, dtype)
     for t in range(start, 8):
         pos = off + t
-        a, ah, jc = jdecode_step(jcfg, params, jc, jb["tokens"][:, t:t + 1],
-                                 jnp.asarray(pos, jnp.int32))
+        a, ah, jc = jdec(jcfg, params, jc, jb["tokens"][:, t:t + 1],
+                         jnp.asarray(pos, jnp.int32))
         b, bh, tc = decode_step(tcfg, model, tc, tb["tokens"][:, t:t + 1],
                                 pos)
-        _close(a, b, dtype, f"{name} decode logits pos {pos}")
-        _close(ah, bh, dtype, f"{name} decode hidden pos {pos}")
+        close(a, b, f"{name} decode logits pos {pos}")
+        close(ah, bh, f"{name} decode hidden pos {pos}")
         # decode reproduces the parallel forward at every position
-        np.testing.assert_allclose(_np(b), _np(tl[:, pos]),
-                                   err_msg=f"{name} decode vs forward",
-                                   **_tol(dtype))
-    for key in jc:
-        np.testing.assert_array_equal(np.asarray(jc[key]["pos"]),
-                                      tc[key]["pos"].numpy())
-        for kv in ("k", "v"):
-            _close(jc[key][kv], tc[key][kv], dtype, f"{name} cache {kv}")
+        close(tl[:, pos], b, f"{name} decode vs forward")
+    assert_caches_close(jc, tc, dtype, f"{name} decode", fam)
 
 
-@pytest.mark.parametrize("name", DENSE)
+def cache_leaves(cache):
+    """{"p0/k": array, ...}: a cache's leaves by path, the sLSTM state's
+    tuple (c, n, h, m) named by its letters as in the port."""
+    out = {}
+    for key, entry in cache.items():
+        if isinstance(entry, (tuple, list)):
+            entry = dict(zip("cnhm", entry))
+        for leaf, a in entry.items():
+            out[f"{key}/{leaf}"] = a
+    return out
+
+
+def assert_caches_close(jc, tc, dtype, what, family=None):
+    jl, tl = cache_leaves(jc), cache_leaves(tc)
+    assert sorted(jl) == sorted(tl), what
+    for key, a in jl.items():
+        assert tuple(np.shape(a)) == tuple(tl[key].shape), f"{what} {key}"
+        if key.endswith("/pos"):
+            np.testing.assert_array_equal(np.asarray(a), tl[key].numpy(),
+                                          err_msg=f"{what} {key}")
+        else:
+            _close(a, tl[key], dtype, f"{what} cache {key}", family)
+
+
+@pytest.mark.parametrize("name", ALL)
 def test_prefill_matches_jax_and_step_by_step(name):
     jcfg, params, tcfg, model = _pair(name, "float32")
-    jb, tb = _batches(jcfg, s=12, seed=3)
+    fam = tcfg.family
+    # 12 positions; 16 where mLSTM chunks of 8 must divide the prompt
+    s = 16 if "mlstm" in tcfg.pattern else 12
+    jb, tb = _batches(jcfg, s=s, seed=3)
     jl, jh, jc = jprefill(jcfg, params, jb, 32)
     tl, th, tc = prefill(tcfg, model, tb, 32)
-    _close(jl, tl, "float32", f"{name} prefill logits")
-    _close(jh, th, "float32", f"{name} prefill hidden")
-    assert sorted(jc) == sorted(tc)
-    for key in jc:
-        for leaf in ("k", "v", "pos"):
-            assert tuple(jc[key][leaf].shape) == tuple(tc[key][leaf].shape)
-            _close(jc[key][leaf], tc[key][leaf], "float32",
-                   f"{name} prefill cache {key}/{leaf}")
-        assert tc[key]["k"].dtype == torch.float32   # activation dtype
-    if jcfg.num_img_tokens:
+    _close(jl, tl, "float32", f"{name} prefill logits", fam)
+    _close(jh, th, "float32", f"{name} prefill hidden", fam)
+    assert_caches_close(jc, tc, "float32", f"{name} prefill", fam)
+    for leaf, t in cache_leaves(tc).items():
+        if not leaf.endswith("/pos"):       # activation dtype, or float32
+            assert t.dtype == torch.float32, leaf
+    if jcfg.num_img_tokens or jcfg.encoder_layers:
         return
-    # the step-by-step cache equals prefill's
+    # the step-by-step cache equals prefill's. mLSTM's stabiliser m
+    # differs by construction (decode's includes its initial 0, prefill's
+    # does not, in the reference too), so its C and n are held as
+    # C exp(m) and n exp(m), the state both forms stand for
     sc = init_cache(tcfg, 2, 32, dtype=torch.float32, device="cpu")
-    for t in range(12):
+    for t in range(s):
         _, _, sc = decode_step(tcfg, model, sc, tb["tokens"][:, t:t + 1], t)
     for key in tc:
-        for leaf in ("k", "v", "pos"):
-            _close(sc[key][leaf], tc[key][leaf], "float32",
-                   f"{name} step cache {key}/{leaf}")
+        a, b = dict(sc[key]), dict(tc[key])
+        if set(a) == {"C", "n", "m"}:
+            for c in (a, b):
+                e = torch.exp(c.pop("m"))
+                c["C"], c["n"] = c["C"] * e[..., None, None], \
+                    c["n"] * e[..., None]
+        for leaf in b:
+            _close(a[leaf], b[leaf], "float32",
+                   f"{name} step cache {key}/{leaf}", fam)
+
+
+def test_xlstm_stack_amplifies_rounding():
+    """Why xlstm-350m's float32 runs take the reference's rtol 0.1: the
+    reference itself moves its smoke logits by more than 1e-4 (+1e-4
+    relative) when its embedding table changes by 1e-7 relative, about
+    one float32 rounding."""
+    jcfg, params, _, _ = _pair("xlstm-350m", "float32")
+    jb, _ = _batches(jcfg)
+    base = np.asarray(jforward(jcfg, params, jb)[0])
+    noise = 1 + 1e-7 * np.random.default_rng(1).normal(
+        size=params["embed"]["table"].shape)
+    moved = dict(params, embed={"table": params["embed"]["table"]
+                                * noise.astype(np.float32)})
+    got = np.asarray(jforward(jcfg, moved, jb)[0])
+    assert (np.abs(got - base) > 1e-4 + 1e-4 * np.abs(base)).any()
+    np.testing.assert_allclose(got, base, **_tol("float32", "ssm"))
 
 
 def test_cache_defaults_to_bfloat16():
@@ -415,7 +482,7 @@ def test_local_attention_window_and_ring_match_jax():
     np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_entry_points_need_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

@@ -449,7 +449,9 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.serving.frontdoor', 'repro_torch.fleet.manager', "
         "'repro_torch.distributed.sharded_index', "
         "'repro_torch.models.decode', 'repro_torch.core.rag', "
-        "'repro_torch.serving.engine', 'repro_torch.launch.serve'}\n"
+        "'repro_torch.serving.engine', 'repro_torch.launch.serve', "
+        "'repro_torch.models.moe', 'repro_torch.models.recurrent', "
+        "'repro_torch.models.xlstm', 'repro_torch.configs.inputs'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"

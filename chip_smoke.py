@@ -7,6 +7,7 @@
                                      # phase 4 alone, on an in-memory index
     python3 chip_smoke.py --lm-only  # build + the lm and lm_families
                                      # phases alone
+    python3 chip_smoke.py --train-only   # build + the train phase alone
 
 Phases (any failure exits non-zero and prints no result line):
   1. device   -- name, count, `nvidia-smi` name and power limit.
@@ -121,6 +122,26 @@ Phases (any failure exits non-zero and prints no result line):
                  (prefill of 8 x 1,500 frames + 1 token, 16 decode steps,
                  twice bit for bit), each with decode == forward on one
                  float32 period at full width.
+     train    -- (last, the serving phases freed) training on one card:
+                 llama3-8b at full width (d 4,096, 32 / 8 heads, d_ff
+                 14,336, vocab 128,256, bf16, remat on) cut to 8 of its 32
+                 layers (the whole model's AdamW state exceeds the card),
+                 random weights from seed 0; TokenStream(seed 0) batches of
+                 1 x 4,096 tokens; AdamW lr 3e-4, warmup 1, 6 steps through
+                 Trainer.fit. Checks: (a) every loss and grad_norm finite,
+                 the last loss below the first; (b) two more runs of the
+                 first 2 steps give the same losses and the same bits in
+                 every parameter and moment leaf (an integer digest of each
+                 leaf on the card); (c) autograd's directional derivative
+                 of loss_fn against a central difference on 1 float32
+                 layer at full width, 512 tokens; (d) at llama3-8b's smoke
+                 config 20 straight steps == 10, a save, a fresh Trainer
+                 and 10 more, bit for bit. Printed: step ms, tokens/s,
+                 model FLOPs and their share of the bf16 peak, the AdamW
+                 update's ms, torch calls from Python a step, the card's
+                 busy share of a step, peak memory, the checkpoint's bytes
+                 and save / restore seconds. No kernel of the three lies
+                 on this path: its launch counts are read (0 each).
      Each path's kernel launch counters are zeroed just before it and read
      just after; every kernel the path runs must show launches.
   4. kernels  -- each kernel against its plain PyTorch version on the card
@@ -2629,13 +2650,15 @@ def sharded_phase(eng, ctx):
 
 def profile_batch(label, run):
     """Device busy share of one batch (`run()` runs it to the host), from
-    a torch.profiler trace: device kernel time over host wall time."""
+    a torch.profiler trace: device kernel time over host wall time. The
+    trace holds device activity only: with CPU ops in it too, each
+    kernel's time is also credited to the op that launched it, and the
+    sum counts it twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -4124,11 +4147,381 @@ def lm_families_phase(store):
     return out, rows
 
 
+# ---------------------------------------------------------------------------
+# the train phase: llama3-8b at full width, 8 of 32 layers, trained on the
+# card (loss_fn with gradients, AdamW, the trainer, checkpoint-resume)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "llama3-8b"
+TRAIN_LAYERS = 8             # of 32: the whole model's AdamW state (96 GB)
+                             # exceeds the card
+TRAIN_BATCH, TRAIN_SEQ = 1, 4096   # configs/base.py's train_4k sequence;
+                                   # its global batch of 256 cut to 1
+TRAIN_STEPS = 6
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=6)
+TRAIN_REPEAT_STEPS = 2       # (b): two runs of the first steps, bit for bit
+TRAIN_FD_LAYERS, TRAIN_FD_SEQ = 1, 512   # (c): float32, full width
+TRAIN_FD_EPS = 3e-3          # step along the direction (each leaf's rms
+                             # scales it): large enough that the float32
+                             # loss's rounding over 2 eps stays small, small
+                             # enough that the eps^2 term does
+TRAIN_FD_TOL = 1e-2          # |fd - autograd| <= TOL x |autograd|
+TRAIN_RESUME_STEPS = 20      # (d): at llama3-8b's smoke config
+BF16_FLOPS = 989e12          # H100 SXM dense bfloat16 tensor-core rate
+
+
+def train_log(msg):
+    log(f"train {msg}  [{CARD}]")
+
+
+def leaf_digest(t, chunk=1 << 26):
+    """An exact digest of a tensor's bits, formed on the device: each 16-
+    or 32-bit word times a weight from its position, summed in int64
+    (wrapping, so the order of the sums cannot show)."""
+    import torch
+    words = t.detach().reshape(-1).view(
+        torch.int16 if t.element_size() == 2 else torch.int32)
+    h = 0
+    for c0 in range(0, words.numel(), chunk):
+        w = words[c0:c0 + chunk].long()
+        pos = torch.arange(c0, c0 + w.numel(), device=w.device)
+        h += int((w * (pos % 1_000_003 + 1)).sum())
+    return h
+
+
+def state_digests(params, state):
+    out = {f"p/{n}": leaf_digest(p) for n, p in params.named_parameters()}
+    for field in ("mu", "nu"):
+        out.update({f"{field}/{n}": leaf_digest(t)
+                    for n, t in getattr(state, field).items()})
+    return out
+
+
+def train_flops(cfg, model, tokens, seq):
+    """(model FLOPs a step: 6 x the parameters in products x tokens + the
+    causal attention's products, forward and backward; the same with the
+    embedding table counted too (6 N T, the common shorthand); the work
+    with remat's recompute of every layer's forward)."""
+    n_all = sum(p.numel() for p in model.parameters())
+    n_embed = model.embed.table.numel()
+    n_layers = sum(p.numel() for p in model.layers.parameters())
+    # QK^T and PV, 2 T^2 H hd each, half of it under the causal mask
+    attn_fwd = cfg.num_layers * 2 * tokens * seq * cfg.num_heads \
+        * cfg.head_dim
+    model_flops = 6 * (n_all - n_embed) * tokens + 3 * attn_fwd
+    return (model_flops, 6 * n_all * tokens + 3 * attn_fwd,
+            model_flops + 2 * n_layers * tokens + attn_fwd)
+
+
+def train_data(cfg, dev, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    stream = TokenStream(vocab=cfg.vocab_size, batch=batch, seq=seq, seed=0)
+
+    def data(start):
+        for b in stream.iter_from(start):
+            yield {"tokens": torch.as_tensor(b["tokens"], device=dev)}
+    return data
+
+
+def train_step_detail(cfg, params, state, batch, tcfg):
+    """One more step of the trained model, read three ways: its kernels
+    and the card's busy share (torch.profiler), the torch calls it makes
+    from Python (host_ops), and the AdamW update alone (CUDA events, on
+    the step's own gradients)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import make_train_step
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    # device activity only: a trace with CPU ops too credits each kernel's
+    # time to its CPU op as well, which counts it twice
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) > 0]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    kernels = sum(e.count for e in rows)
+    top = sorted(rows, key=dev_us, reverse=True)[:8]
+    n_ops = host_ops(lambda: step(params, state, batch))
+    # the update alone, on this step's gradients
+    total, _ = transformer.loss_fn(cfg, params, batch)
+    names = [n for n, _ in params.named_parameters()]
+    grads = dict(zip(names, torch.autograd.grad(total,
+                                                list(params.parameters()))))
+    del total
+    upd_ms = cuda_ms(lambda: optim.update(tcfg.opt, grads, state, params),
+                     iters=3)
+    del grads
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms if busy_ms > 0 else None,
+                busy_share=busy_ms / wall_ms if busy_ms > 0 else None,
+                kernels=kernels, host_ops=n_ops, update_ms=upd_ms,
+                top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top])
+
+
+def train_fd_check(cfg, dev):
+    """(c): autograd's directional derivative of loss_fn along a seeded
+    random direction v (each leaf's draw scaled by the leaf's rms) against
+    the central difference (L(w + eps v) - L(w - eps v)) / (2 eps), on
+    TRAIN_FD_LAYERS float32 layers at full width, TRAIN_FD_SEQ tokens."""
+    import dataclasses
+    import torch
+    from repro_torch.models import init_model, transformer
+    c1 = dataclasses.replace(cfg, num_layers=TRAIN_FD_LAYERS,
+                             dtype="float32")
+    model = init_model(c1, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    batch = next(train_data(c1, dev, seq=TRAIN_FD_SEQ)(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    params = list(model.parameters())
+    direction = []
+    for p in params:
+        v = torch.randn(p.shape, generator=g, device=dev)
+        direction.append(v * p.detach().square().mean().sqrt().clamp(
+            min=1e-3))
+    total, _ = transformer.loss_fn(c1, model, batch)
+    grads = torch.autograd.grad(total, params)
+    ad = float(sum((gr.double() * v.double()).sum()
+                   for gr, v in zip(grads, direction)))
+    del grads, total
+    losses = []
+    with torch.no_grad():
+        for sign in (1, -2):
+            for p, v in zip(params, direction):
+                p.add_(v * (sign * TRAIN_FD_EPS))
+            losses.append(float(transformer.loss_fn(c1, model, batch)[0]
+                                .double()))
+    fd = (losses[0] - losses[1]) / (2 * TRAIN_FD_EPS)
+    err = abs(fd - ad)
+    del model, direction
+    torch.cuda.empty_cache()
+    return dict(autograd=ad, central_difference=fd, abs_err=err,
+                rel_err=err / abs(ad), tol=TRAIN_FD_TOL, eps=TRAIN_FD_EPS)
+
+
+def train_resume_check(dev):
+    """(d): llama3-8b's smoke config on the card, TRAIN_RESUME_STEPS
+    straight steps against half of them, a save, a fresh Trainer and the
+    rest, bit for bit; the checkpoint's bytes, its save and restore
+    seconds."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.models import init_model
+    from repro_torch.storage import checkpoint
+    from repro_torch.train import Trainer, TrainerConfig, optim
+    cfg = smoke_config(get_arch(TRAIN_ARCH).config)
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    data = train_data(cfg, dev, batch=2, seq=64)
+    opt = optim.AdamWConfig(lr=1e-3, warmup_steps=2,
+                            total_steps=TRAIN_RESUME_STEPS)
+    half = TRAIN_RESUME_STEPS // 2
+    full = Trainer(cfg, TrainerConfig(opt=opt))
+    p_full, s_full = full.fit(model, data, TRAIN_RESUME_STEPS)
+    ck = WORK / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    tcfg = TrainerConfig(opt=opt, checkpoint_every=half, ckpt_dir=str(ck))
+    Trainer(cfg, tcfg).fit(model, data, half)
+    check(checkpoint.latest_step(str(ck)) == half,
+          "train: the trainer wrote no checkpoint")
+    ck_bytes = sum(f.stat().st_size for f in (ck / f"step_{half}").iterdir())
+    tr = Trainer(cfg, tcfg)
+    p_res, s_res = tr.fit(model, data, TRAIN_RESUME_STEPS)
+    check(tr.history[0]["step"] == half, "train: the resume did not start "
+          "at the checkpoint's step")
+    same_loss = [h["loss"] for h in tr.history] == \
+        [h["loss"] for h in full.history[half:]]
+    same = state_digests(p_full, s_full) == state_digests(p_res, s_res)
+    check(same_loss and same, "train: a resumed run differs from the "
+          "straight run")
+    # the checkpoint's own times at this size
+    tree = {"params": p_res, "opt": s_res}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(str(ck), 999, tree)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _, _ = checkpoint.restore_checkpoint(str(ck), tree, step=999)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(state_digests(back["params"], back["opt"])
+          == state_digests(p_res, s_res), "train: a restore differs from "
+          "what was saved")
+    shutil.rmtree(ck, ignore_errors=True)
+    return dict(steps=TRAIN_RESUME_STEPS, losses_equal=same_loss,
+                bits_equal=same, ckpt_bytes=ck_bytes, save_s=save_s,
+                restore_s=restore_s,
+                params=sum(p.numel() for p in model.parameters()))
+
+
+def train_phase():
+    """Training on one card (ROADMAP Queue A 16b); see the module
+    docstring. -> summary, with the kernels' launch counts over the main
+    training run."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model
+    from repro_torch.train import Trainer, TrainerConfig, optim
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).config,
+                              num_layers=TRAIN_LAYERS)
+    out = {}
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops, flops_6nt, flops_remat = train_flops(cfg, model, tokens,
+                                                TRAIN_SEQ)
+    train_log(f"config {cfg.name} at full width, {cfg.num_layers} of 32 "
+              f"layers: d_model {cfg.d_model}, {cfg.num_heads} heads "
+              f"({cfg.num_kv_heads} KV), d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}; "
+              f"{n_params} random parameters (seed 0) in "
+              f"{time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x seq "
+              f"{TRAIN_SEQ} (TokenStream seed 0), AdamW {TRAIN_OPT}")
+    data = train_data(cfg, dev)
+    tcfg = TrainerConfig(opt=optim.AdamWConfig(**TRAIN_OPT))
+
+    # -- (a) the main run; the kernels' launch counts over it ---------------
+    ops.reset_launch_counts()
+    tr = Trainer(cfg, tcfg)
+    params, state = tr.fit(model, data, TRAIN_STEPS)
+    out["launches"] = dict(ops.launch_counts())
+    hist = tr.history
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"train: a loss or grad_norm is not finite: {losses} {norms}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    dts = [h["dt"] * 1e3 for h in hist[1:]]
+    p50 = float(np.percentile(dts, 50))
+    out.update(losses=losses, grad_norms=norms, lrs=[h["lr"] for h in hist],
+               first_step_ms=hist[0]["dt"] * 1e3, step_ms_p50=p50,
+               step_ms_max=max(dts), tokens_per_s=tokens / (p50 / 1e3),
+               model_flops=flops, flops_6nt=flops_6nt,
+               flops_with_remat=flops_remat,
+               flops_share=flops / (p50 / 1e3) / BF16_FLOPS,
+               peak_gib_run=torch.cuda.max_memory_allocated() / 2 ** 30)
+    train_log(f"{TRAIN_STEPS} steps: loss " + " ".join(f"{x:.4f}"
+                                                       for x in losses)
+              + "; grad_norm " + " ".join(f"{x:.4f}" for x in norms)
+              + " (finite, falling)")
+    train_log(f"step {p50:.1f} ms p50, {max(dts):.1f} ms max over steps "
+              f"1-{TRAIN_STEPS - 1} (step 0 {out['first_step_ms']:.1f} ms); "
+              f"{out['tokens_per_s']:.0f} tokens/s; model FLOPs a step "
+              f"{flops / 1e12:.2f} T (6 x {n_params - model.embed.table.numel()}"
+              f" parameters in products x {tokens} tokens + causal "
+              f"attention; {flops_6nt / 1e12:.2f} T as 6 N T with the "
+              f"embedding; {flops_remat / 1e12:.2f} T with remat's "
+              f"recompute), {100 * out['flops_share']:.2f} % of the "
+              f"{BF16_FLOPS / 1e12:.0f} TFLOP/s dense bfloat16 peak; peak "
+              f"{out['peak_gib_run']:.2f} GiB")
+    detail = train_step_detail(cfg, params, state, next(data(TRAIN_STEPS)),
+                               tcfg)
+    out["detail"] = detail
+    share = detail["busy_share"]
+    train_log(f"one more step under torch.profiler: wall "
+              f"{detail['wall_ms']:.1f} ms, the card busy "
+              f"{fmt_ms(detail['busy_ms'])} ("
+              + ("not measured" if share is None else f"{100 * share:.1f} %")
+              + f", {detail['kernels']} kernels); {detail['host_ops']} torch "
+              f"calls from Python a step; the AdamW update alone "
+              f"{detail['update_ms']:.2f} ms (CUDA events); top kernels: "
+              + "; ".join(f"{k} {v:.2f} ms x{n}"
+                          for k, v, n in detail["top"]))
+    del params, state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) two runs of the first steps, bit for bit -----------------------
+    runs = []
+    for _ in range(2):
+        tr = Trainer(cfg, tcfg)
+        p, s = tr.fit(model, data, TRAIN_REPEAT_STEPS)
+        runs.append(([h["loss"] for h in tr.history], state_digests(p, s)))
+        del p, s, tr
+        torch.cuda.empty_cache()
+    same = runs[0] == runs[1]
+    out["repeat"] = dict(steps=TRAIN_REPEAT_STEPS, losses=runs[0][0],
+                         bits_equal=same, leaves=len(runs[0][1]),
+                         matches_main=runs[0][0] == losses[:TRAIN_REPEAT_STEPS])
+    check(same, "train: two runs from seed 0 differ")
+    check(out["repeat"]["matches_main"], "train: the repeated runs' losses "
+          "differ from the main run's first steps")
+    train_log(f"two runs of the first {TRAIN_REPEAT_STEPS} steps: losses "
+              f"{runs[0][0]} == {runs[1][0]}, all {len(runs[0][1])} "
+              f"parameter and moment leaves bit for bit {same} (= the main "
+              f"run's first steps)")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) autograd against a central difference ---------------------------
+    fd = train_fd_check(cfg, dev)
+    out["fd"] = fd
+    check(fd["rel_err"] <= TRAIN_FD_TOL, f"train: autograd {fd['autograd']} "
+          f"differs from the central difference {fd['central_difference']}")
+    train_log(f"autograd == central difference ({TRAIN_FD_LAYERS} layer, "
+              f"float32, d {cfg.d_model}, vocab {cfg.vocab_size}, "
+              f"{TRAIN_FD_SEQ} tokens, eps {TRAIN_FD_EPS} along a seeded "
+              f"direction): {fd['autograd']:.6e} vs "
+              f"{fd['central_difference']:.6e}, relative error "
+              f"{fd['rel_err']:.3e} (limit {TRAIN_FD_TOL})")
+
+    # -- (d) checkpoint-resume at the smoke config ---------------------------
+    res = train_resume_check(dev)
+    out["resume"] = res
+    train_log(f"resume at the smoke config ({res['params']} parameters): "
+              f"{res['steps']} straight steps == {res['steps'] // 2} + save "
+              f"+ a fresh Trainer + {res['steps'] // 2}: losses "
+              f"{res['losses_equal']}, bits {res['bits_equal']}; checkpoint "
+              f"{res['ckpt_bytes']} bytes, save {res['save_s']:.3f} s, "
+              f"restore {res['restore_s']:.3f} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    train_log(f"kernel launches on the train path: {out['launches']} "
+              f"(none of the three lies on it); peak {out['peak_gib']:.2f} "
+              f"GiB; phase train: {out['seconds']:.1f} s")
+    return out
+
+
+def train_only():
+    """Phases 1-2 done: the train phase alone, then its kernels line (the
+    three kernels at no launch on this path, their rows not timed)."""
+    out = train_phase()
+    print(json.dumps({"train": {k: v for k, v in out.items()
+                                if k != "launches"},
+                      "launches_by_path": {"train": out["launches"]}},
+                     default=str), flush=True)
+
+
 def lm_only():
     """Phases 1-2 done: the lm and lm_families phases alone, then their
     kernels line."""
-    out, rows, store = lm_phase()
-    fam, fam_rows = lm_families_phase(store)
+    import torch
+    with torch.no_grad():
+        out, rows, store = lm_phase()
+        fam, fam_rows = lm_families_phase(store)
     res = {k: dict(r, rag=dict(r)) for k, r in rows.items()}
     for k, r in fam_rows.items():
         res[k]["rag_moe"] = r
@@ -4228,6 +4621,9 @@ def run(args):
     if args.lm_only:
         lm_only()
         return
+    if args.train_only:
+        train_only()
+        return
     t0 = time.perf_counter()
     ctx, out = main_path()
     log(f"phase main: {time.perf_counter() - t0:.1f} s")
@@ -4253,9 +4649,15 @@ def run(args):
     del ctx, pools, eng, queries
     gc.collect()
     torch.cuda.empty_cache()
-    out["lm"], lm_rows, store = lm_phase()
-    out["lm_families"], fam_rows = lm_families_phase(store)
+    # the serving phases build no autograd graph (the parameters are
+    # trainable); the train phase last, on a card freed of them
+    with torch.no_grad():
+        out["lm"], lm_rows, store = lm_phase()
+        out["lm_families"], fam_rows = lm_families_phase(store)
     del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = train_phase()
     for key, rows in (("rag", lm_rows), ("rag_moe", fam_rows)):
         for kname, row in rows.items():
             res[kname][key] = row
@@ -4276,7 +4678,8 @@ def run(args):
                "sharded": out["sharded"]["launches"],
                "fleet": out["fleet"]["launches"],
                "lm": out["lm"]["launches"],
-               "lm_moe": out["lm_families"]["launches"]}
+               "lm_moe": out["lm_families"]["launches"],
+               "train": out["train"]["launches"]}
     kernels = kernels_line(res, out["launches"], by_path)
     log(json.dumps({"main": {k: v for k, v in out.items()
                              if k != "launches"}}))
@@ -4299,6 +4702,11 @@ def main():
                          "(llama3-8b and phi3.5-moe with MicroNN "
                          "retrieval, the recurrent, xLSTM and whisper "
                          "families), print their kernels line, stop")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build, then the train phase alone (llama3-8b at "
+                         "full width, 8 of 32 layers, trained on the card; "
+                         "autograd against a central difference; resume), "
+                         "print its summary, stop")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch is driven "
                          "(another tree's, to compare two versions in one "

@@ -47,6 +47,7 @@ class RagDatastore:
     next_token: torch.Tensor     # [max_id] int32
 
 
+@torch.no_grad()
 def knn_logits(ds: RagDatastore, hidden: torch.Tensor, vocab: int,
                cfg: RagConfig, spec: Optional[QuerySpec] = None
                ) -> torch.Tensor:
@@ -88,6 +89,7 @@ def interpolate(lm_logits: torch.Tensor, knn_logp: torch.Tensor,
                            torch.log(lam_t) + knn_logp)
 
 
+@torch.no_grad()
 def rag_decode_logits(ds: RagDatastore, lm_logits: torch.Tensor,
                       hidden: torch.Tensor, cfg: RagConfig,
                       spec: Optional[QuerySpec] = None) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""Launchers (port of repro.launch): serve.py."""
+"""Launchers (port of repro.launch): serve.py, train.py."""

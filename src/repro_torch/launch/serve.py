@@ -21,6 +21,7 @@ from ..models import init_model
 from ..serving import Request, ServeEngine
 
 
+@torch.no_grad()
 def build_rag_datastore(cfg, n: int = 2048, seed: int = 1, *,
                         device=None) -> RagDatastore:
     """n Gaussian context vectors of width d_model in an IVF index of ~64

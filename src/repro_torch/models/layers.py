@@ -6,7 +6,10 @@ parameter leaves under the same names and shapes (`attn.wq` is
 [d, H, hd], `mlp.wi.w` is [d, d_ff]), so carrying weights across is a
 plain copy (convert.params_from_arrays). The functions keep the
 reference's names and take the module where the reference takes its
-parameter dict. Inference only: parameters carry no gradient.
+parameter dict. Parameters are trainable (`nn.Parameter`'s default):
+serving callers run under `torch.no_grad()` themselves, so decode builds
+no autograd graph, while `transformer.loss_fn` differentiates the same
+model.
 
 Every random draw goes through an explicit `torch.Generator` on the
 parameters' device; the port draws other numbers than `jax.random` from
@@ -56,7 +59,7 @@ class InitCtx:
             nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0,
                                   generator=self.generator)
             v = v.mul_(scale).to(dtype)
-        return nn.Parameter(v, requires_grad=False)
+        return nn.Parameter(v)
 
 
 def cache_device(device) -> torch.device:

@@ -14,7 +14,10 @@ reference vmaps one row at a time):
     as in the reference: no Pallas kernel here);
   * combine sums a token's top_k contributions in choice order, through
     the inverse of the dispatch permutation: no scatter-add, so a token's
-    output has the same bits in every run and in any batch.
+    output has the same bits in every run and in any batch;
+  * the backward pass is as ordered: the dispatch gathers pairs through
+    a permutation, so no two gradient rows meet in an atomic add (a
+    dropped pair's slot receives only exact zeros).
 
 On one device there is one routing group (`moe_group_count`).
 """
@@ -79,7 +82,6 @@ def _dispatch(xt, router, top_k: int, cap: int):
     flat_e = gate_idx.reshape(n, s * top_k)
     order = torch.sort(flat_e, dim=-1, stable=True).indices
     se = torch.gather(flat_e, 1, order)
-    st = torch.div(order, top_k, rounding_mode="floor")   # token of a pair
     counts = F.one_hot(flat_e, e).sum(1)                   # bincount, [N, E]
     offsets = torch.cumsum(counts, -1) - counts            # exclusive
     idx_in_e = torch.arange(s * top_k, device=xt.device) \
@@ -88,8 +90,15 @@ def _dispatch(xt, router, top_k: int, cap: int):
     slot = torch.clamp(se * cap + idx_in_e, 0, e * cap - 1)
     gates = torch.gather(gate_vals.reshape(n, -1), 1, order) * keep
 
+    # each pair's token row in the sorted order: the token-major pairs
+    # (a token's top_k copies) gathered through the permutation `order`,
+    # which names every pair once, so the backward pass adds no two rows
+    # in a float race (a gather by token would scatter-add each token's
+    # copies by atomics); the copies meet in the expand's backward, a sum
+    # over the choices
+    pairs = xt[:, :, None, :].expand(n, s, top_k, d).reshape(n, s * top_k, d)
     xg = torch.where(keep[..., None], torch.gather(
-        xt, 1, st[..., None].expand(n, s * top_k, d)),
+        pairs, 1, order[..., None].expand(n, s * top_k, d)),
         torch.zeros((), dtype=xt.dtype, device=xt.device))
     # kept pairs own distinct slots; a dropped pair may share one, but it
     # adds an exact zero there, so the order of the adds cannot show

@@ -11,7 +11,9 @@ layer order: layer r * len(pattern) + j is the reference's
 stack_count * len(pattern) are its `params["tail"]["t<j>"]`. Whisper's
 encoder layers are `enc_layers` (the reference's `enc_stack/p0`).
 
-`loss_fn` waits for the training half (ROADMAP Queue A 16b).
+`forward` records autograd where the caller lets it (serving callers run
+under `torch.no_grad()`); `loss_fn` is the reference's next-token
+cross-entropy over the text region, for training.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.types import resolve_device
@@ -185,13 +188,35 @@ def apply_layer(cfg: ModelConfig, kind: str, p, x, positions,
 
 def _run_stack(cfg: ModelConfig, params, x, positions, enc_out=None,
                scan: Optional[bool] = None, remat: Optional[bool] = None):
-    """Every layer in order, unrolled. `scan` and `remat` are the
-    reference's compile and training switches; eager inference has no
-    counterpart, so they are accepted and ignored."""
+    """Every layer in order, unrolled: `scan` is the reference's compile
+    switch and is accepted and ignored. With `remat` (default cfg.remat)
+    and autograd recording, each period of `stack_period` layers and the
+    tail run under `torch.utils.checkpoint`, which keeps only their input
+    and recomputes the rest in the backward pass: the reference's
+    `jax.checkpoint` with its default policy, `nothing_saveable`."""
+    remat = (cfg.remat if remat is None else remat) \
+        and torch.is_grad_enabled()
+    period = len(cfg.stack_period)
+    n_stack = cfg.stack_count * period
+    layers = list(params.layers)
+    groups = [layers[i:i + period] for i in range(0, n_stack, period)]
+    if len(layers) > n_stack:
+        groups.append(layers[n_stack:])
+
+    def run(group, x, aux):
+        for layer in group:
+            x, a = apply_layer(cfg, layer.kind, layer, x, positions, enc_out)
+            aux = aux + a
+        return x, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in params.layers:
-        x, a = apply_layer(cfg, layer.kind, layer, x, positions, enc_out)
-        aux = aux + a
+    for group in groups:
+        if remat:
+            # no layer draws random numbers, so no RNG state to replay
+            x, aux = checkpoint(run, group, x, aux, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = run(group, x, aux)
     return x, aux
 
 
@@ -242,16 +267,38 @@ def logits_from_hidden(cfg: ModelConfig, params, h):
     return softcap(logits, cfg.logit_softcap)
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params, batch, scan: Optional[bool] = None,
             remat: Optional[bool] = None, last_logits_only: bool = False):
     """Full-sequence forward -> (logits, aux, hidden [B,S,D], offset).
 
     last_logits_only=True computes the unembedding for the final position
-    only."""
+    only. Autograd records unless the caller turns it off."""
     x, positions, enc_out, offset = embed_inputs(cfg, params, batch)
     x, aux = _run_stack(cfg, params, x, positions, enc_out, scan=scan,
                         remat=remat)
     x = apply_norm(cfg.norm, params.final_norm, x)
     h = x[:, -1:, :] if last_logits_only else x
     return logits_from_hidden(cfg, params, h), aux, x, offset
+
+
+def loss_fn(cfg: ModelConfig, params, batch, scan: Optional[bool] = None,
+            remat: Optional[bool] = None):
+    """Next-token cross-entropy over the text region -> (total, metrics):
+    total = loss + 0.01 * aux (the MoE load-balance term), metrics
+    {loss, aux, ppl = exp(min(loss, 20))}, 0-d float32 tensors.
+
+    The logits at sequence position offset + j (after pixtral's image
+    tokens) predict token j + 1; positions without a target are masked,
+    not sliced, as in the reference. Log-softmax in float32."""
+    logits, aux, _, offset = forward(cfg, params, batch, scan, remat)
+    tok = batch["tokens"].long()
+    s_total, s_text = logits.shape[1], tok.shape[1]
+    tidx = torch.arange(s_total, device=logits.device) - offset + 1
+    ok = (tidx >= 1) & (tidx <= s_text - 1)
+    tgt = tok[:, torch.clamp(tidx, 0, s_text - 1)]              # [B, S]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    loss = torch.sum(nll * ok[None, :]) / (ok.sum() * tok.shape[0])
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux": aux,
+                   "ppl": torch.exp(torch.clamp(loss, max=20.0))}

@@ -148,8 +148,10 @@ class ServeEngine:
             yield from c.items()
 
     # -- decode loop ----------------------------------------------------------
+    @torch.no_grad()
     def step(self) -> Dict[int, int]:
-        """One decode step for all active slots. -> {uid: new_token}."""
+        """One decode step for all active slots. -> {uid: new_token}. No
+        autograd graph is built (the model's parameters are trainable)."""
         self._admit()
         live = [s for s, r in enumerate(self.active) if r is not None]
         if not live:

@@ -84,6 +84,15 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def _no_autograd():
+    """The model's parameters are trainable; these parity runs of the
+    inference paths record no autograd graph, as the serving callers
+    do."""
+    with torch.no_grad():
+        yield
+
+
 DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

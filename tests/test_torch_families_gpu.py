@@ -63,7 +63,7 @@ def _batch(cfg, device, s=8):
 def _run(cfg, model, device):
     """Forward logits and 8 decode steps' logits on `device`."""
     batch = _batch(cfg, device)
-    fwd = forward(cfg, model, batch)[0]
+    fwd = forward(cfg, model, batch)[0].detach()
     cache = init_cache(cfg, 2, 32, device=device)
     start = 0
     if cfg.encoder_layers:

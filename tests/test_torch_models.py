@@ -89,6 +89,15 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def _no_autograd():
+    """The model's parameters are trainable; these parity runs of the
+    inference paths record no autograd graph, as the serving callers
+    do."""
+    with torch.no_grad():
+        yield
+
+
 def jax_param_arrays(params):
     """JAX params flattened by tree path (the params_from_arrays keys)."""
     leaves = jax.tree_util.tree_flatten_with_path(params)[0]

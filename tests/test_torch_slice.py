@@ -451,7 +451,9 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.models.decode', 'repro_torch.core.rag', "
         "'repro_torch.serving.engine', 'repro_torch.launch.serve', "
         "'repro_torch.models.moe', 'repro_torch.models.recurrent', "
-        "'repro_torch.models.xlstm', 'repro_torch.configs.inputs'}\n"
+        "'repro_torch.models.xlstm', 'repro_torch.configs.inputs', "
+        "'repro_torch.train.optim', 'repro_torch.train.trainer', "
+        "'repro_torch.storage.checkpoint', 'repro_torch.launch.train'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"

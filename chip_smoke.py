@@ -8,6 +8,8 @@
     python3 chip_smoke.py --lm-only  # build + the lm and lm_families
                                      # phases alone
     python3 chip_smoke.py --train-only   # build + the train phase alone
+                                     # (with the sharded train step and
+                                     # the remat policies side by side)
 
 Phases (any failure exits non-zero and prints no result line):
   1. device   -- name, count, `nvidia-smi` name and power limit.
@@ -140,8 +142,22 @@ Phases (any failure exits non-zero and prints no result line):
                  model FLOPs and their share of the bf16 peak, the AdamW
                  update's ms, torch calls from Python a step, the card's
                  busy share of a step, peak memory, the checkpoint's bytes
-                 and save / restore seconds. No kernel of the three lies
-                 on this path: its launch counts are read (0 each).
+                 and save / restore seconds. (e) sharded train (16c,
+                 launch/steps on DTensor): llama3-8b at full width cut to
+                 2 of 32 layers, TokenStream batches of 2 x 1,024, 3
+                 AdamW steps, first on one rank over the whole model,
+                 freed, then 4 ranks spawned on the one card, a (data 2,
+                 model 2) mesh over gloo (FSDP, TP and SP), the same
+                 weights and batches: the ranks' losses equal, the first
+                 step's within 1e-2 relative of the one rank's; step ms,
+                 each rank's peak memory, one step's collectives by kind
+                 (costs.StepCounter), the host-staged all-gathers; times
+                 of 4 ranks sharing one card, not of a 4-card
+                 deployment. With --train-only also (f): the remat
+                 policies "nothing" and "dots" side by side on the
+                 8-layer cell, 3 steps each, equal losses, step ms and
+                 peak memory. No kernel of the three lies on these
+                 paths: their launch counts are read (0 each).
      Each path's kernel launch counters are zeroed just before it and read
      just after; every kernel the path runs must show launches.
   4. kernels  -- each kernel against its plain PyTorch version on the card
@@ -4365,10 +4381,11 @@ def train_resume_check(dev):
                 params=sum(p.numel() for p in model.parameters()))
 
 
-def train_phase():
-    """Training on one card (ROADMAP Queue A 16b); see the module
-    docstring. -> summary, with the kernels' launch counts over the main
-    training run."""
+def train_phase(policies: bool = False):
+    """Training on one card (ROADMAP Queue A 16b) and the sharded train
+    step (16c); see the module docstring. With `policies`, also the remat
+    policies side by side (--train-only). -> summary, with the kernels'
+    launch counts over the main training run."""
     import dataclasses
     import gc
     import numpy as np
@@ -4498,6 +4515,10 @@ def train_phase():
               f"{res['losses_equal']}, bits {res['bits_equal']}; checkpoint "
               f"{res['ckpt_bytes']} bytes, save {res['save_s']:.3f} s, "
               f"restore {res['restore_s']:.3f} s")
+    # -- (e) the sharded train step: 4 ranks on the card ----------------------
+    out["sharded"] = sharded_train_phase()
+    if policies:
+        out["remat_policies"] = train_remat_policies()
     out["seconds"] = time.perf_counter() - t_phase
     train_log(f"kernel launches on the train path: {out['launches']} "
               f"(none of the three lies on it); peak {out['peak_gib']:.2f} "
@@ -4505,13 +4526,283 @@ def train_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sharded train step (launch.steps on DTensor): 4 ranks on one card
+# ---------------------------------------------------------------------------
+
+SHARDED_TRAIN_LAYERS = 2     # of 32: llama3-8b at full width
+SHARDED_TRAIN_MESH = (2, 2)  # (data, model): FSDP, TP and SP all take part
+SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ = 2, 1024
+SHARDED_TRAIN_STEPS = 3      # step 0 warms DTensor's caches, step 1 is
+                             # timed, step 2 runs under costs.StepCounter
+SHARDED_TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=3)
+SHARDED_TRAIN_TOL = 1e-2     # first-step loss, relative: bf16 partial sums
+                             # add in another order on 4 ranks
+SHARDED_TRAIN_TIMEOUT_S = 300
+
+
+def sharded_train_config():
+    import dataclasses
+    from repro_torch.configs import get_arch
+    arch = get_arch(TRAIN_ARCH)
+    cfg = dataclasses.replace(arch.config, num_layers=SHARDED_TRAIN_LAYERS)
+    return dataclasses.replace(arch, config=cfg), cfg
+
+
+def sharded_train_rank(rank, world, rdv, out_dir):
+    """One rank of the sharded train phase (spawned): llama3-8b's model
+    drawn from seed 0 on the card, placed by launch.steps under the rule
+    placements on a (data 2, model 2) mesh over gloo, then
+    SHARDED_TRAIN_STEPS steps on the TokenStream batches."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import topk
+    from repro_torch.kernels import ops
+    from repro_torch.launch import costs, steps
+    from repro_torch.models import init_model, sharding
+    from repro_torch.train import optim
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", init_method=rdv, world_size=world,
+                            rank=rank)
+    mesh = init_device_mesh("cuda", SHARDED_TRAIN_MESH,
+                            mesh_dim_names=("data", "model"))
+    arch, cfg = sharded_train_config()
+    res = dict(rank=rank, ready_at=time.time())
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    shape = ShapeConfig("sharded", "train", SHARDED_TRAIN_SEQ,
+                        SHARDED_TRAIN_BATCH)
+    lw = steps.train_lowerable(arch, shape, mesh,
+                               opt_cfg=optim.AdamWConfig(**SHARDED_TRAIN_OPT))
+    data = train_data(cfg, dev, batch=SHARDED_TRAIN_BATCH,
+                      seq=SHARDED_TRAIN_SEQ)(0)
+    # the parameters first, then their moments beside each shard: a full
+    # float32 state per rank would crowd the shared card
+    params = steps.place(model, lw.in_shardings[0], mesh)
+    low = steps.lower(lw, mesh, (params, optim.init(params), next(data)))
+    del model, params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sharding.reset_replicated_calls()
+    topk.reset_host_staging()
+    losses, step_ms = [], []
+    params, state, batch = low.args
+    for i in range(SHARDED_TRAIN_STEPS):
+        if i:
+            batch = steps.place(next(data), lw.in_shardings[2], mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        if i == SHARDED_TRAIN_STEPS - 1:
+            staged0 = topk.host_staging()
+            with costs.StepCounter() as counter:
+                counter.hold((params, state, batch))
+                params, state, m = low(params, state, batch)
+            res["counted"] = dict(
+                flops=counter.flops, bytes_accessed=counter.bytes_accessed,
+                coll_bytes=counter.coll_bytes, coll_calls=counter.coll_calls,
+                peak_live_bytes=counter.peak_bytes)
+        else:
+            staged0 = topk.host_staging()
+            t0 = time.perf_counter()
+            params, state, m = low(params, state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        staged = topk.host_staging()
+        res[f"staged_step{i}"] = {k: staged[k] - staged0[k] for k in staged}
+        losses.append(float(m["loss"]))
+    res.update(losses=losses, step_ms=step_ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=dict(ops.launch_counts()),
+               replicated=sharding.replicated_calls(),
+               staged=topk.host_staging(),
+               params_local=sum(p.to_local().numel()
+                                for p in params.parameters()),
+               placements={n: [str(x) for x in p.placements]
+                           for n, p in list(params.named_parameters())[:4]})
+    with open(out_dir / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_train_phase():
+    """The sharded train step (launch.steps) on the card: llama3-8b at its
+    published widths cut to SHARDED_TRAIN_LAYERS layers, first one rank
+    over the whole model (trainer.make_train_step) for SHARDED_TRAIN_STEPS
+    steps, freed, then 4 ranks spawned on the same card on a (data 2,
+    model 2) mesh over gloo with the same weights and batches. The ranks'
+    losses equal each other; the first step's loss agrees with the single
+    rank's within SHARDED_TRAIN_TOL relative. All-gathers cross through
+    host memory (gloo cannot take CUDA tensors there), counted. The times
+    are of 4 ranks sharing one card, not of a 4-card deployment."""
+    import gc
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.models import init_model
+    from repro_torch.train import TrainerConfig, optim
+    from repro_torch.train.trainer import make_train_step
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    arch, cfg = sharded_train_config()
+    out = {}
+    # -- one rank over the whole model ----------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    state = optim.init(model)
+    step = make_train_step(cfg, TrainerConfig(
+        opt=optim.AdamWConfig(**SHARDED_TRAIN_OPT)))
+    data = train_data(cfg, dev, batch=SHARDED_TRAIN_BATCH,
+                      seq=SHARDED_TRAIN_SEQ)(0)
+    single, single_ms = [], []
+    for _ in range(SHARDED_TRAIN_STEPS):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, batch)
+        single.append(float(m["loss"]))
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+    out["single"] = dict(losses=single, step_ms=single_ms,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, state, step, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 4 ranks on the card ---------------------------------------------------
+    out_dir = WORK / "sharded_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    world = SHARDED_TRAIN_MESH[0] * SHARDED_TRAIN_MESH[1]
+    t0 = time.time()
+    pc = mp.start_processes(
+        sharded_train_rank, args=(world, f"file://{out_dir}/rdv", out_dir),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARDED_TRAIN_TIMEOUT_S
+    try:
+        while not pc.join(timeout=5):
+            check(time.monotonic() < deadline, "the sharded train ranks did "
+                  f"not finish within {SHARDED_TRAIN_TIMEOUT_S} s")
+    finally:
+        for p in pc.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(world)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ready_s = max(r["ready_at"] for r in ranks) - t0
+    losses = ranks[0]["losses"]
+    check(all(r["losses"] == losses for r in ranks), "sharded train: the "
+          f"ranks' losses differ: {[r['losses'] for r in ranks]}")
+    rel = abs(losses[0] - single[0]) / abs(single[0])
+    check(rel <= SHARDED_TRAIN_TOL, f"sharded train: first-step loss "
+          f"{losses[0]} vs one rank's {single[0]} (relative {rel:.3e} > "
+          f"{SHARDED_TRAIN_TOL})")
+    out.update(ranks=world, mesh=SHARDED_TRAIN_MESH, ready_s=ready_s,
+               losses=losses, first_rel=rel,
+               step_ms=ranks[0]["step_ms"],
+               peak_gib=[r["peak_gib"] for r in ranks],
+               staged=[r["staged"] for r in ranks],
+               staged_step1=ranks[0]["staged_step1"],
+               replicated=ranks[0]["replicated"],
+               counted=ranks[0]["counted"],
+               params_local=[r["params_local"] for r in ranks])
+    out["launches"] = {k: sum(r["launches"][k] for r in ranks)
+                       for k in ranks[0]["launches"]}
+    c = out["counted"]
+    train_log(f"sharded: llama3-8b at full width, {SHARDED_TRAIN_LAYERS} of "
+              f"32 layers ({n_params} parameters), batch "
+              f"{SHARDED_TRAIN_BATCH} x {SHARDED_TRAIN_SEQ} (TokenStream "
+              f"seed 0), AdamW {SHARDED_TRAIN_OPT}; {world} ranks on this "
+              f"one card, a (data {SHARDED_TRAIN_MESH[0]}, model "
+              f"{SHARDED_TRAIN_MESH[1]}) mesh over gloo, ready in "
+              f"{ready_s:.1f} s (times are of 4 ranks sharing one card, not "
+              f"of a 4-card deployment)")
+    train_log("sharded: losses step by step (4 ranks | one rank): " + "; ".join(
+        f"{a:.6f} | {b:.6f}" for a, b in zip(losses, single))
+        + f"; first step relative {rel:.3e} (limit {SHARDED_TRAIN_TOL})")
+    train_log(f"sharded: step ms {[round(x, 1) for x in out['step_ms']]} "
+              f"(step 0 warms DTensor's caches) vs one rank "
+              f"{[round(x, 1) for x in single_ms]}; peak GiB per rank "
+              f"{[round(x, 2) for x in out['peak_gib']]} vs one rank "
+              f"{out['single']['peak_gib']:.2f}; local parameters per rank "
+              f"{out['params_local']}")
+    train_log(f"sharded: collectives of one step (rank 0, counted): calls "
+              f"{c['coll_calls']}, bytes {c['coll_bytes']}; host-staged "
+              f"all-gathers in the timed step {out['staged_step1']}, in all "
+              f"{out['staged'][0]}; ops run replicated {out['replicated']}; "
+              f"traced FLOPs {c['flops'] / 1e12:.3f} T, live-bytes peak "
+              f"{c['peak_live_bytes'] / 2 ** 30:.2f} GiB (allocator peak "
+              f"{out['peak_gib'][0]:.2f} GiB)")
+    out["seconds"] = time.perf_counter() - t_phase
+    train_log(f"kernel launches on the sharded train path (4 ranks): "
+              f"{out['launches']} (none of the three lies on it); phase "
+              f"sharded train: {out['seconds']:.1f} s")
+    return out
+
+
+def train_remat_policies():
+    """REPRO_REMAT_POLICY "nothing" beside "dots" on the train cell
+    (llama3-8b at full width, TRAIN_LAYERS layers, 1 x 4,096 tokens):
+    3 AdamW steps each from seed 0, step ms and peak memory; the losses
+    must be equal."""
+    import dataclasses
+    import gc
+    import os
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_model
+    from repro_torch.train import Trainer, TrainerConfig, optim
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).config,
+                              num_layers=TRAIN_LAYERS)
+    tcfg = TrainerConfig(opt=optim.AdamWConfig(**TRAIN_OPT))
+    out = {}
+    prev = os.environ.get("REPRO_REMAT_POLICY")
+    try:
+        for policy in ("nothing", "dots"):
+            os.environ["REPRO_REMAT_POLICY"] = policy
+            model = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tr = Trainer(cfg, tcfg)
+            p, s = tr.fit(model, train_data(cfg, dev), 3)
+            out[policy] = dict(
+                losses=[h["loss"] for h in tr.history],
+                step_ms=[h["dt"] * 1e3 for h in tr.history],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            del model, p, s, tr
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_REMAT_POLICY", None)
+        else:
+            os.environ["REPRO_REMAT_POLICY"] = prev
+    check(out["dots"]["losses"] == out["nothing"]["losses"], "train: the "
+          f"dots policy's losses {out['dots']['losses']} differ from "
+          f"nothing's {out['nothing']['losses']}")
+    for policy, v in out.items():
+        train_log(f"remat {policy}: losses {v['losses']}, step ms "
+                  f"{[round(x, 1) for x in v['step_ms']]}, peak "
+                  f"{v['peak_gib']:.2f} GiB")
+    return out
+
+
 def train_only():
     """Phases 1-2 done: the train phase alone, then its kernels line (the
     three kernels at no launch on this path, their rows not timed)."""
-    out = train_phase()
+    out = train_phase(policies=True)
     print(json.dumps({"train": {k: v for k, v in out.items()
                                 if k != "launches"},
-                      "launches_by_path": {"train": out["launches"]}},
+                      "launches_by_path": {
+                          "train": out["launches"],
+                          "sharded_train": out["sharded"]["launches"]}},
                      default=str), flush=True)
 
 
@@ -4679,7 +4970,8 @@ def run(args):
                "fleet": out["fleet"]["launches"],
                "lm": out["lm"]["launches"],
                "lm_moe": out["lm_families"]["launches"],
-               "train": out["train"]["launches"]}
+               "train": out["train"]["launches"],
+               "sharded_train": out["train"]["sharded"]["launches"]}
     kernels = kernels_line(res, out["launches"], by_path)
     log(json.dumps({"main": {k: v for k, v in out.items()
                              if k != "launches"}}))
@@ -4705,8 +4997,9 @@ def main():
     ap.add_argument("--train-only", action="store_true",
                     help="build, then the train phase alone (llama3-8b at "
                          "full width, 8 of 32 layers, trained on the card; "
-                         "autograd against a central difference; resume), "
-                         "print its summary, stop")
+                         "autograd against a central difference; resume; "
+                         "the sharded train step on 4 ranks; the remat "
+                         "policies side by side), print its summary, stop")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch is driven "
                          "(another tree's, to compare two versions in one "

@@ -3,7 +3,8 @@ in csrc/ivf_scan.cu, which replaces the Pallas TPU kernel
 repro/kernels/ivf_scan.py::ivf_scan_topk.
 
 `ivf_scan_topk` runs the plain PyTorch version (`ivf_scan_plain`, from
-kernels/ref.py) when its tensors lie on the CPU, and launches the kernel
+kernels/ref.py) when its tensors lie on the CPU (or on "meta", where it
+computes shapes only, for the dry-run's trace), and launches the kernel
 when they lie on a CUDA device -- there is no fallback from one to the
 other. `LAUNCHES` counts kernel launches, and only those; a batch of more
 than common.MAX_QUERIES_PER_LAUNCH queries runs as one launch per slice.
@@ -43,7 +44,7 @@ def ivf_scan_topk(
     opaque filter callable) and by `program`, the predicate evaluated on
     its attrs inside the scan. `part_ids` must lie in [0, k): shapes are
     checked, values are not (that would cost a host sync per scan)."""
-    if queries.device.type == "cpu":
+    if queries.device.type in ("cpu", "meta"):
         return ivf_scan_plain(queries, vectors, valid, ids, part_ids, k_out,
                               metric=metric, qsel=qsel, keep=keep,
                               attrs=attrs, program=program)

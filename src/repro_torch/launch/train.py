@@ -5,8 +5,9 @@
 
 Without --device the model, the data and the steps run on the card.
 Weights are random, drawn from seed 0; the data is the TokenStream
-(learnable synthetic tokens). One device: the sharded mesh of the
-reference's production launcher is not ported yet.
+(learnable synthetic tokens). One device, as in the reference, whose
+launcher builds no mesh either: the sharded train step is
+launch/steps.train_lowerable on a DeviceMesh.
 """
 from __future__ import annotations
 

@@ -24,10 +24,11 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
-from torch import nn
 
-from .layers import (InitCtx, cache_device, einsum, einsum_f32, rope_tables,
-                     rotate, softcap)
+from .layers import (InitCtx, Params, cache_device, einsum, einsum_f32,
+                     rope_tables, rotate, softcap)
+from .sharding import (attn_exact_mode, constrain_scores, sp_active,
+                       splittable)
 
 NEG_INF = -2.0e38
 
@@ -37,19 +38,26 @@ ATTN_CHUNK = 512
 KV_CHUNK = 2048
 
 
-class Attention(nn.Module):
+class Attention(Params):
     def __init__(self, ctx: InitCtx, dim: int, n_q: int, n_kv: int,
                  head_dim: int, bias: bool = False):
         super().__init__()
-        self.wq = ctx.param((dim, n_q, head_dim))
-        self.wk = ctx.param((dim, n_kv, head_dim))
-        self.wv = ctx.param((dim, n_kv, head_dim))
-        self.wo = ctx.param((n_q, head_dim, dim))
+        self.wq = ctx.param((dim, n_q, head_dim),
+                            ("embed", "heads", "head_dim"))
+        self.wk = ctx.param((dim, n_kv, head_dim),
+                            ("embed", "kv_heads", "head_dim"))
+        self.wv = ctx.param((dim, n_kv, head_dim),
+                            ("embed", "kv_heads", "head_dim"))
+        self.wo = ctx.param((n_q, head_dim, dim),
+                            ("heads", "head_dim", "embed"))
         if bias:
-            self.bq = ctx.param((n_q, head_dim), zeros=True)
-            self.bk = ctx.param((n_kv, head_dim), zeros=True)
-            self.bv = ctx.param((n_kv, head_dim), zeros=True)
-            self.bo = ctx.param((dim,), zeros=True)
+            self.bq = ctx.param((n_q, head_dim), ("heads", "head_dim"),
+                                zeros=True)
+            self.bk = ctx.param((n_kv, head_dim), ("kv_heads", "head_dim"),
+                                zeros=True)
+            self.bv = ctx.param((n_kv, head_dim), ("kv_heads", "head_dim"),
+                                zeros=True)
+            self.bo = ctx.param((dim,), ("embed",), zeros=True)
         else:
             self.bq = self.bk = self.bv = self.bo = None
 
@@ -82,9 +90,11 @@ def _gqa_scores(q, k, scale, cap):
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    qg = q.reshape(b, s, hkv, g, hd)
+    qg = splittable(q, 2, hkv).reshape(b, s, hkv, g, hd)
     scores = einsum_f32("bskgh,btkh->bkgst", qg, k) * scale
-    return softcap(scores, cap).reshape(b, hq, s, k.shape[1])
+    scores = splittable(softcap(scores, cap), 2, 1).reshape(
+        b, hq, s, k.shape[1])
+    return constrain_scores(scores, kv_heads=hkv)
 
 
 def _out_proj(p, ctx):
@@ -99,9 +109,10 @@ def _gqa_out(p, scores, v):
     b, hq, s, t = scores.shape
     hkv = v.shape[2]
     g = hq // hkv
-    sg = scores.reshape(b, hkv, g, s, t)
-    ctx = torch.einsum("bkgst,btkh->bskgh", sg.to(v.dtype), v)
-    return _out_proj(p, ctx.reshape(b, s, hq, v.shape[-1]))
+    sg = splittable(scores, 1, hkv).reshape(b, hkv, g, s, t)
+    ctx = einsum("bkgst,btkh->bskgh", sg.to(v.dtype), v)
+    return _out_proj(p, splittable(ctx, 3, 1).reshape(b, s, hq,
+                                                      v.shape[-1]))
 
 
 def _attn_block(p, q, k, v, qpos, kpos, *, scale, cap, causal, window,
@@ -130,9 +141,11 @@ def _attn_block(p, q, k, v, qpos, kpos, *, scale, cap, causal, window,
             ok = ok & (qp - kp < window)
         return torch.where(ok, s, torch.full((), NEG_INF, device=s.device))
 
-    if t <= KV_CHUNK or t % KV_CHUNK:
-        probs = torch.softmax(block_scores(kx, kpos), dim=-1)
-        ctx = torch.einsum("bhst,bthk->bshk", probs.to(vx.dtype), vx)
+    if t <= KV_CHUNK or t % KV_CHUNK or attn_exact_mode():
+        # one block: short keys, and the dry-run's cost probes
+        probs = torch.softmax(constrain_scores(block_scores(kx, kpos)),
+                              dim=-1)
+        ctx = einsum("bhst,bthk->bshk", probs.to(vx.dtype), vx)
         return _out_proj(p, ctx)
 
     b, sc = q.shape[0], q.shape[1]
@@ -148,7 +161,7 @@ def _attn_block(p, q, k, v, qpos, kpos, *, scale, cap, causal, window,
         r = torch.exp(m - m_new)
         pexp = torch.exp(s - m_new[..., None])
         l = l * r + pexp.sum(dim=-1)
-        blk = torch.einsum("bhst,bthk->bshk", pexp.to(v_blk.dtype),
+        blk = einsum("bhst,bthk->bshk", pexp.to(v_blk.dtype),
                            v_blk).float()
         acc = acc * r.transpose(1, 2)[..., None] + blk
         m = m_new
@@ -183,8 +196,9 @@ def attention(p, x, positions, *, theta: float = 1e4, causal: bool = True,
     chunk = chunk or ATTN_CHUNK
     kw = dict(scale=scale, cap=attn_softcap, causal=causal, window=window,
               is_cross=kv_x is not None)
-    if s <= chunk or s % chunk:
-        # whisper's 1,500 frames take this unchunked branch
+    if s <= chunk or s % chunk or sp_active(s):
+        # whisper's 1,500 frames take this unchunked branch; under
+        # sequence parallelism the scores' S dim is already sharded
         return _attn_block(p, q, k, v, positions, kv_pos, **kw)
     out = torch.zeros((b, s, p.wo.shape[-1]), dtype=x.dtype, device=x.device)
     for c0 in range(0, s, chunk):

@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,11 +38,17 @@ class InitCtx:
     device: Optional[torch.device] = None
     abstract: bool = False
 
-    def param(self, shape: Sequence[int], scale: Optional[float] = None,
-              zeros: bool = False, ones: bool = False,
-              dtype: Optional[torch.dtype] = None) -> nn.Parameter:
+    def param(self, shape: Sequence[int], axes: Tuple[Optional[str], ...],
+              scale: Optional[float] = None, zeros: bool = False,
+              ones: bool = False, dtype: Optional[torch.dtype] = None
+              ) -> nn.Parameter:
+        """A parameter of `shape` carrying its logical axis names `axes`
+        (the reference's spec of the leaf; a `Params` module records them
+        under the attribute it is assigned to)."""
         dtype = dtype or self.param_dtype
         shape = tuple(int(s) for s in shape)
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} and axes {axes} differ in rank")
         if self.abstract:
             v = torch.empty(shape, dtype=dtype, device="meta")
         elif zeros:
@@ -59,7 +65,23 @@ class InitCtx:
             nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0,
                                   generator=self.generator)
             v = v.mul_(scale).to(dtype)
-        return nn.Parameter(v)
+        p = nn.Parameter(v)
+        p._logical_axes = tuple(axes)
+        return p
+
+
+class Params(nn.Module):
+    """A module of parameters: assigning it a parameter made by
+    `InitCtx.param` records that parameter's logical axes in
+    `param_axes[attribute name]`, kept with the module through copies,
+    `to_empty` and checkpoint restores (models.sharding.logical_axes
+    reads them)."""
+
+    def __setattr__(self, name, value):
+        axes = getattr(value, "_logical_axes", None)
+        if axes is not None:
+            self.__dict__.setdefault("param_axes", {})[name] = axes
+        super().__setattr__(name, value)
 
 
 def cache_device(device) -> torch.device:
@@ -70,36 +92,55 @@ def cache_device(device) -> torch.device:
     return resolve_device(device)
 
 
-def promote(a: torch.Tensor, b: torch.Tensor):
-    """JAX's implicit dtype promotion for a binary product: torch's
-    products want equal dtypes."""
-    dt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dt), b.to(dt)
+def promote(*ts: torch.Tensor):
+    """JAX's implicit dtype promotion for a product: torch's products want
+    equal dtypes."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    return tuple(t.to(dt) for t in ts)
 
 
-def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.einsum(eq, *promote(a, b))
+def _sharded(ts) -> bool:
+    return any(hasattr(t, "device_mesh") for t in ts)
+
+
+def einsum(eq: str, *ts: torch.Tensor) -> torch.Tensor:
+    """torch.einsum after `promote`; on DTensors shard-locally
+    (sharding.einsum)."""
+    ts = promote(*ts)
+    if _sharded(ts):
+        from .sharding import einsum as sharded_einsum
+        return sharded_einsum(eq, *ts)
+    return torch.einsum(eq, *ts)
 
 
 def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """`preferred_element_type=float32`: exact products of the inputs
     summed in float32, with a float32 result."""
-    return torch.einsum(eq, a.float(), b.float())
+    return einsum(eq, a.float(), b.float())
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., k] @ b [k, n] after `promote` (an einsum on DTensors)."""
+    if _sharded((a, b)):
+        return einsum("...k,kn->...n", a, b)
+    return torch.matmul(*promote(a, b))
 
 
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 
-class Norm(nn.Module):
+class Norm(Params):
     """rmsnorm (`scale`) or layernorm (`scale`, `bias`), float32 params."""
 
     def __init__(self, ctx: InitCtx, kind: str, dim: int):
         super().__init__()
         self.kind = kind
-        self.scale = ctx.param((dim,), ones=True, dtype=torch.float32)
+        self.scale = ctx.param((dim,), ("embed",), ones=True,
+                               dtype=torch.float32)
         if kind != "rmsnorm":
-            self.bias = ctx.param((dim,), zeros=True, dtype=torch.float32)
+            self.bias = ctx.param((dim,), ("embed",), zeros=True,
+                                  dtype=torch.float32)
 
     def forward(self, x):
         return apply_norm(self.kind, self, x)
@@ -132,16 +173,18 @@ def init_norm(ctx: InitCtx, kind: str, dim: int) -> Norm:
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
-class Table(nn.Module):
-    """A lookup table (`table` [rows, dim]): token or position embedding."""
+class Table(Params):
+    """A lookup table (`table` [rows, dim]): token embedding (axes
+    ("vocab", "embed")) or learned positions ((None, "embed"))."""
 
-    def __init__(self, ctx: InitCtx, rows: int, dim: int, scale: float):
+    def __init__(self, ctx: InitCtx, rows: int, dim: int, scale: float,
+                 axes: Tuple[Optional[str], ...] = (None, "embed")):
         super().__init__()
-        self.table = ctx.param((rows, dim), scale=scale)
+        self.table = ctx.param((rows, dim), axes, scale=scale)
 
 
 def init_embed(ctx: InitCtx, vocab: int, dim: int) -> Table:
-    return Table(ctx, vocab, dim, scale=1.0)
+    return Table(ctx, vocab, dim, scale=1.0, axes=("vocab", "embed"))
 
 
 def embed(p, tokens, dim: int):
@@ -154,10 +197,10 @@ def unembed_logits(p, x):
     return einsum("...d,vd->...v", x, p.table)
 
 
-class Unembed(nn.Module):
+class Unembed(Params):
     def __init__(self, ctx: InitCtx, vocab: int, dim: int):
         super().__init__()
-        self.w = ctx.param((dim, vocab))
+        self.w = ctx.param((dim, vocab), ("embed", "vocab"))
 
 
 def init_unembed(ctx: InitCtx, vocab: int, dim: int) -> Unembed:
@@ -168,21 +211,22 @@ def init_unembed(ctx: InitCtx, vocab: int, dim: int) -> Unembed:
 # Dense / MLP
 # ---------------------------------------------------------------------------
 
-class Dense(nn.Module):
+class Dense(Params):
     def __init__(self, ctx: InitCtx, d_in: int, d_out: int,
-                 bias: bool = False):
+                 axes=("embed", "ff"), bias: bool = False):
         super().__init__()
-        self.w = ctx.param((d_in, d_out))
-        self.b = ctx.param((d_out,), zeros=True) if bias else None
+        self.w = ctx.param((d_in, d_out), axes)
+        self.b = ctx.param((d_out,), (axes[1],), zeros=True) \
+            if bias else None
 
 
-def init_dense(ctx: InitCtx, d_in: int, d_out: int,
+def init_dense(ctx: InitCtx, d_in: int, d_out: int, axes=("embed", "ff"),
                bias: bool = False) -> Dense:
-    return Dense(ctx, d_in, d_out, bias=bias)
+    return Dense(ctx, d_in, d_out, axes, bias=bias)
 
 
 def dense(p, x):
-    y = torch.matmul(*promote(x, p.w))
+    y = matmul(x, p.w)
     if p.b is not None:
         y = y + p.b
     return y
@@ -195,9 +239,9 @@ class MLP(nn.Module):
     def __init__(self, ctx: InitCtx, dim: int, d_ff: int, act: str,
                  bias: bool = False):
         super().__init__()
-        self.wi = init_dense(ctx, dim, d_ff, bias=bias)
-        self.wo = init_dense(ctx, d_ff, dim, bias=bias)
-        self.wg = init_dense(ctx, dim, d_ff, bias=bias) \
+        self.wi = init_dense(ctx, dim, d_ff, ("embed", "ff"), bias=bias)
+        self.wo = init_dense(ctx, d_ff, dim, ("ff", "embed"), bias=bias)
+        self.wg = init_dense(ctx, dim, d_ff, ("embed", "ff"), bias=bias) \
             if act.endswith("_glu") else None
 
 
@@ -234,8 +278,8 @@ def mlp(p, x, act: str):
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     """The rotation's [hd/2] frequencies on `device` (None means the
-    card)."""
-    return _freqs(head_dim, float(theta), resolve_device(device))
+    card; "meta" gives the shape only)."""
+    return _freqs(head_dim, float(theta), cache_device(device))
 
 
 @functools.lru_cache(maxsize=32)

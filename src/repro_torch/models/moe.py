@@ -19,7 +19,13 @@ reference vmaps one row at a time):
     a permutation, so no two gradient rows meet in an atomic add (a
     dropped pair's slot receives only exact zeros).
 
-On one device there is one routing group (`moe_group_count`).
+Routing groups: under sequence parallelism the S axis is sharded over
+`model`, so tokens are grouped per SP shard (`sharding.moe_group_count`;
+one group off a mesh), which sets each group's capacity. On a mesh the
+expert weights are gathered over FSDP at use (`gather_fsdp`), the
+dispatch tensors pinned to their group, then expert, placement
+(`constrain_moe`), and the sort dispatch and the combine run replicated
+(`sharding.replicated`: DTensor has no rule for the sort).
 """
 from __future__ import annotations
 
@@ -27,27 +33,29 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from .layers import InitCtx, einsum, gelu
-
-
-def moe_group_count(seq_len: int) -> int:
-    """Routing groups for MoE dispatch: one per sequence-parallel shard
-    in the reference; one on a single device (the port's only layout)."""
-    return 1
+from .layers import InitCtx, Params, einsum, gelu
+from .sharding import (constrain_moe, gather_fsdp, moe_group_count,
+                       replicated)
 
 
-class MoE(nn.Module):
+# the expert weights' logical axes (gather_fsdp reads them at use)
+EXPERT_AXES = {"wi": ("experts", "embed", "ff"),
+               "wg": ("experts", "embed", "ff"),
+               "wo": ("experts", "ff", "embed")}
+
+
+class MoE(Params):
     """`router` [D, E] float32, `wi` / `wg` [E, D, F], `wo` [E, F, D]."""
 
     def __init__(self, ctx: InitCtx, dim: int, d_ff: int, n_experts: int,
                  act: str = "silu_glu"):
         super().__init__()
-        self.router = ctx.param((dim, n_experts), dtype=torch.float32)
-        self.wi = ctx.param((n_experts, dim, d_ff))
-        self.wo = ctx.param((n_experts, d_ff, dim))
-        self.wg = ctx.param((n_experts, dim, d_ff)) \
+        self.router = ctx.param((dim, n_experts), ("embed", "experts"),
+                                dtype=torch.float32)
+        self.wi = ctx.param((n_experts, dim, d_ff), EXPERT_AXES["wi"])
+        self.wo = ctx.param((n_experts, d_ff, dim), EXPERT_AXES["wo"])
+        self.wg = ctx.param((n_experts, dim, d_ff), EXPERT_AXES["wg"]) \
             if act.endswith("_glu") else None
 
 
@@ -128,24 +136,31 @@ def _combine(ye, slot, keep, gates, order, s: int, top_k: int):
 def moe(p, x, *, top_k: int = 2, capacity_factor: float = 1.25,
         act: str = "silu_glu") -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> ([B, S, D], aux_loss scalar)."""
+    w = {n: gather_fsdp(getattr(p, n), axes) for n, axes in
+         EXPERT_AXES.items() if getattr(p, n) is not None}
     b, s, d = x.shape
     e = p.router.shape[1]
     g = moe_group_count(s)
     s_loc = s // g
     cap = int(max(1, round(s_loc * top_k / e * capacity_factor)))
 
-    rows = x.reshape(b * g, s_loc, d)
-    xe, slot, keep, gates, order, aux = _dispatch(rows, p.router, top_k,
-                                                  cap)
-    xe = xe.reshape(b, g, e, cap, d)
-    h = einsum("bgecd,edf->bgecf", xe, p.wi)
-    if p.wg is not None:
-        hg = einsum("bgecd,edf->bgecf", xe, p.wg)
+    xe, slot, keep, gates, order, aux = replicated(
+        "moe dispatch", lambda x, r: _dispatch(
+            x.reshape(b * g, s_loc, d), r, top_k, cap), x, p.router)
+    xe = constrain_moe(xe.reshape(b, g, e, cap, d), "group")   # local pin
+    xe = constrain_moe(xe, "expert")                           # a2a in
+    h = einsum("bgecd,edf->bgecf", xe, w["wi"])
+    if "wg" in w:
+        hg = einsum("bgecd,edf->bgecf", xe, w["wg"])
         h = (F.silu(hg) * h) if act == "silu_glu" \
             else (gelu(hg) * h)
     else:
         h = gelu(h)
-    ye = einsum("bgecf,efd->bgecd", h, p.wo)
-    y = _combine(ye.reshape(b * g, e * cap, d), slot, keep, gates, order,
-                 s_loc, top_k)
+    ye = einsum("bgecf,efd->bgecd", h, w["wo"])
+    ye = constrain_moe(ye, "expert")
+    ye = constrain_moe(ye, "group")                            # a2a out
+    y = replicated(
+        "moe combine", lambda ye, *r: _combine(
+            ye.reshape(b * g, e * cap, d), *r, s_loc, top_k),
+        ye, slot, keep, gates, order)
     return y.reshape(b, s, d), aux.mean()

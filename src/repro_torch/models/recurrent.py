@@ -22,27 +22,30 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from .layers import InitCtx, associative_scan, cache_device, gelu, promote
+from .layers import (InitCtx, Params, associative_scan, cache_device, einsum,
+                     gelu, matmul)
+from .sharding import constrain_feature
 
 RGLRU_C = 8.0
 
 
-class RGLRU(nn.Module):
+class RGLRU(Params):
     def __init__(self, ctx: InitCtx, dim: int, d_rnn: int,
                  conv_width: int = 4):
         super().__init__()
-        self.wy = ctx.param((dim, d_rnn))                 # gate branch
-        self.wx = ctx.param((dim, d_rnn))                 # main branch
-        self.conv_w = ctx.param((conv_width, d_rnn), scale=1.0 / conv_width)
-        self.conv_b = ctx.param((d_rnn,), zeros=True)
-        self.wa = ctx.param((d_rnn, d_rnn))               # recurrence gate
-        self.ba = ctx.param((d_rnn,), zeros=True)
-        self.wi = ctx.param((d_rnn, d_rnn))               # input gate
-        self.bi = ctx.param((d_rnn,), zeros=True)
-        self.lam = ctx.param((d_rnn,), scale=1.0, dtype=torch.float32)
-        self.wo = ctx.param((d_rnn, dim))
+        self.wy = ctx.param((dim, d_rnn), ("embed", "rnn"))  # gate branch
+        self.wx = ctx.param((dim, d_rnn), ("embed", "rnn"))  # main branch
+        self.conv_w = ctx.param((conv_width, d_rnn), (None, "rnn"),
+                                scale=1.0 / conv_width)
+        self.conv_b = ctx.param((d_rnn,), ("rnn",), zeros=True)
+        self.wa = ctx.param((d_rnn, d_rnn), ("rnn", "rnn_out"))  # r gate
+        self.ba = ctx.param((d_rnn,), ("rnn",), zeros=True)
+        self.wi = ctx.param((d_rnn, d_rnn), ("rnn", "rnn_out"))  # i gate
+        self.bi = ctx.param((d_rnn,), ("rnn",), zeros=True)
+        self.lam = ctx.param((d_rnn,), ("rnn",), scale=1.0,
+                             dtype=torch.float32)
+        self.wo = ctx.param((d_rnn, dim), ("rnn", "embed"))
 
 
 def init_rglru_block(ctx: InitCtx, dim: int, d_rnn: int,
@@ -50,13 +53,9 @@ def init_rglru_block(ctx: InitCtx, dim: int, d_rnn: int,
     return RGLRU(ctx, dim, d_rnn, conv_width)
 
 
-def _mm(a, b):
-    return torch.matmul(*promote(a, b))
-
-
 def _gates(p, u):
-    r = torch.sigmoid(_mm(u, p.wa) + p.ba)
-    i = torch.sigmoid(_mm(u, p.wi) + p.bi)
+    r = torch.sigmoid(matmul(u, p.wa) + p.ba)
+    i = torch.sigmoid(matmul(u, p.wi) + p.bi)
     log_a = -RGLRU_C * F.softplus(p.lam) * r.float()
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) \
@@ -81,18 +80,22 @@ def _linear_combine(e1, e2):
 
 
 def rglru_block(p, x) -> torch.Tensor:
-    """Full-sequence forward. x: [B, S, D] -> [B, S, D]."""
-    y = gelu(_mm(x, p.wy))
-    u = _conv_full(p, _mm(x, p.wx))
-    _, h = associative_scan(_linear_combine, _gates(p, u), dim=1)
-    return _mm((y.float() * h).to(x.dtype), p.wo)
+    """Full-sequence forward. x: [B, S, D] -> [B, S, D]. On a mesh the
+    RNN-state activations shard on the feature dim (the time scan is
+    elementwise in R, so it stays local)."""
+    y = gelu(matmul(x, p.wy))
+    u = constrain_feature(_conv_full(p, matmul(x, p.wx)))
+    a, b = _gates(p, u)
+    a, b = constrain_feature(a), constrain_feature(b)
+    _, h = associative_scan(_linear_combine, (a, b), dim=1)
+    return matmul((y.float() * h).to(x.dtype), p.wo)
 
 
 def rglru_final_state(p, x) -> Dict[str, torch.Tensor]:
     """The decode state after the sequence x [B, S, D] (prefill's cache
     fill): the last h of the scan and the last conv_width - 1 raw inputs
     (zeros before the start), in float32."""
-    raw = _mm(x, p.wx)
+    raw = matmul(x, p.wx)
     _, h = associative_scan(_linear_combine, _gates(p, _conv_full(p, raw)),
                             dim=1)
     w = p.conv_w.shape[0]
@@ -113,12 +116,12 @@ def init_rglru_state(batch: int, d_rnn: int, conv_width: int = 4,
 
 def rglru_decode(p, x, state) -> Tuple[torch.Tensor, dict]:
     """One-token step. x: [B, 1, D] -> ([B, 1, D], new state)."""
-    y = gelu(_mm(x, p.wy))            # [B, 1, R]
-    u_raw = _mm(x, p.wx)[:, 0, :].float()                   # [B, R]
+    y = gelu(matmul(x, p.wy))            # [B, 1, R]
+    u_raw = matmul(x, p.wx)[:, 0, :].float()                   # [B, R]
     hist = torch.cat([state["conv"], u_raw[:, None, :]], dim=1)
-    u = torch.einsum("bwr,wr->br", hist, p.conv_w.to(hist.dtype)) \
+    u = einsum("bwr,wr->br", hist, p.conv_w.to(hist.dtype)) \
         + p.conv_b
     a, b = _gates(p, u)
     h = a * state["h"] + b
-    out = _mm((y[:, 0, :].float() * h).to(x.dtype), p.wo)
+    out = matmul((y[:, 0, :].float() * h).to(x.dtype), p.wo)
     return out[:, None, :], {"h": h, "conv": hist[:, 1:, :]}

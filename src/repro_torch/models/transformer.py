@@ -18,6 +18,7 @@ cross-entropy over the text region, for training.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -29,9 +30,10 @@ from ..core.types import resolve_device
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import recurrent as rec_lib
+from . import sharding as shard_lib
 from . import xlstm as xlstm_lib
 from .layers import (InitCtx, Table, apply_norm, init_embed, init_mlp,
-                     init_norm, init_unembed, mlp, promote, softcap,
+                     init_norm, init_unembed, matmul, mlp, softcap,
                      unembed_logits)
 
 KINDS = ("attn", "local", "xattn", "rglru", "mlstm", "slstm")
@@ -193,7 +195,13 @@ def _run_stack(cfg: ModelConfig, params, x, positions, enc_out=None,
     and autograd recording, each period of `stack_period` layers and the
     tail run under `torch.utils.checkpoint`, which keeps only their input
     and recomputes the rest in the backward pass: the reference's
-    `jax.checkpoint` with its default policy, `nothing_saveable`."""
+    `jax.checkpoint`. REPRO_REMAT_POLICY picks the periods' policy, as in
+    the reference: "nothing" (the default, `nothing_saveable`) or "dots"
+    (`dots_with_no_batch_dims_saveable`: the products without a batch
+    dimension keep their outputs, `remat_policy`); the tail is always
+    `nothing_saveable`. The residual stream is pinned at each period's
+    entry and exit and at the tail's entry (sharding hooks: identities
+    off a mesh)."""
     remat = (cfg.remat if remat is None else remat) \
         and torch.is_grad_enabled()
     period = len(cfg.stack_period)
@@ -203,21 +211,62 @@ def _run_stack(cfg: ModelConfig, params, x, positions, enc_out=None,
     if len(layers) > n_stack:
         groups.append(layers[n_stack:])
 
-    def run(group, x, aux):
-        for layer in group:
-            x, a = apply_layer(cfg, layer.kind, layer, x, positions, enc_out)
-            aux = aux + a
+    # remat's recompute may run on autograd's device thread: it takes the
+    # forward's sharding context along
+    sharding_ctx = shard_lib.current()
+
+    def run(group, x, aux, is_tail):
+        with shard_lib.restored(sharding_ctx):
+            x = shard_lib.constrain_residual(x)
+            for layer in group:
+                x, a = apply_layer(cfg, layer.kind, layer, x, positions,
+                                   enc_out)
+                aux = aux + a
+            if not is_tail:
+                x = shard_lib.constrain_residual(x)
         return x, aux
 
+    dots = os.environ.get("REPRO_REMAT_POLICY", "nothing") == "dots"
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for group in groups:
+    for i, group in enumerate(groups):
+        is_tail = i * period >= n_stack
         if remat:
             # no layer draws random numbers, so no RNG state to replay
-            x, aux = checkpoint(run, group, x, aux, use_reentrant=False,
-                                preserve_rng_state=False)
+            kw = {}
+            if dots and not is_tail:
+                kw["context_fn"] = remat_policy
+            x, aux = checkpoint(run, group, x, aux, is_tail,
+                                use_reentrant=False,
+                                preserve_rng_state=False, **kw)
         else:
-            x, aux = run(group, x, aux)
+            x, aux = run(group, x, aux, is_tail)
     return x, aux
+
+
+def _saves_dots(ctx, op, *args, **kwargs):
+    """The `dots` policy: keep the output of a product without a batch
+    dimension (a projection), recompute everything else. `torch.einsum`
+    lowers a projection to `bmm` too (a batch of 1 after its reshapes),
+    so the op's name alone cannot tell a projection from the attention's
+    batched products: a `bmm` counts as unbatched when its batch dim is
+    1."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default):
+        save = True
+    elif op is aten.bmm.default:
+        save = args[0].shape[0] == 1
+    else:
+        save = False
+    return CheckpointPolicy.MUST_SAVE if save \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy():
+    """The (forward, recompute) contexts of the `dots` policy, for
+    `checkpoint(context_fn=)`."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_saves_dots)
 
 
 def _encode(cfg: ModelConfig, params, frames):
@@ -240,7 +289,9 @@ def _encode(cfg: ModelConfig, params, frames):
 def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """-> (x [B,S,D], positions [B,S], enc_out (the encoder's output, or
     None), text_offset)."""
-    x = params.embed.table[batch["tokens"].long()]
+    tok = shard_lib.constrain_tokens(batch["tokens"])
+    x = shard_lib.constrain_residual(shard_lib.embedding(params.embed.table,
+                                                         tok))
     if cfg.emb_scale:
         # the sqrt(d) constant is rounded to the activation dtype first
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
@@ -252,8 +303,9 @@ def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     enc_out = _encode(cfg, params, batch["frames"]) \
         if cfg.encoder_layers else None
     s = x.shape[1]
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None] \
-        .expand(x.shape[0], s)
+    positions = shard_lib.like_rows(
+        torch.arange(s, dtype=torch.int32, device=x.device)[None]
+        .expand(x.shape[0], s), x)
     if cfg.pos_kind == "learned":
         x = x + params.pos_emb.table[None, :s].to(x.dtype)
     return x, positions, enc_out, offset
@@ -263,7 +315,7 @@ def logits_from_hidden(cfg: ModelConfig, params, h):
     if cfg.tie_embeddings:
         logits = unembed_logits(params.embed, h)
     else:
-        logits = torch.matmul(*promote(h, params.unembed.w))
+        logits = matmul(h, params.unembed.w)
     return softcap(logits, cfg.logit_softcap)
 
 
@@ -274,8 +326,10 @@ def forward(cfg: ModelConfig, params, batch, scan: Optional[bool] = None,
     last_logits_only=True computes the unembedding for the final position
     only. Autograd records unless the caller turns it off."""
     x, positions, enc_out, offset = embed_inputs(cfg, params, batch)
+    x = shard_lib.constrain_residual(x)
     x, aux = _run_stack(cfg, params, x, positions, enc_out, scan=scan,
                         remat=remat)
+    x = shard_lib.constrain_residual(x)
     x = apply_norm(cfg.norm, params.final_norm, x)
     h = x[:, -1:, :] if last_logits_only else x
     return logits_from_hidden(cfg, params, h), aux, x, offset
@@ -297,7 +351,7 @@ def loss_fn(cfg: ModelConfig, params, batch, scan: Optional[bool] = None,
     ok = (tidx >= 1) & (tidx <= s_text - 1)
     tgt = tok[:, torch.clamp(tidx, 0, s_text - 1)]              # [B, S]
     logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    nll = -shard_lib.gather_last(logp, tgt)
     loss = torch.sum(nll * ok[None, :]) / (ok.sum() * tok.shape[0])
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux": aux,

@@ -27,38 +27,43 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from .layers import (InitCtx, associative_scan, cache_device, einsum,
-                     einsum_f32, gelu, promote)
+from .layers import (InitCtx, Params, associative_scan, cache_device, einsum,
+                     einsum_f32, gelu, matmul)
+from .sharding import constrain_seq_replicated, loop_once, reshape
 
 
-def _mm(a, b):
-    return torch.matmul(*promote(a, b))
+def _log_sigmoid(x):
+    """F.logsigmoid; on a DTensor -softplus(-x) (DTensor has no sharding
+    rule for logsigmoid's backward)."""
+    return -F.softplus(-x) if hasattr(x, "device_mesh") else F.logsigmoid(x)
 
 
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
 
-class MLSTM(nn.Module):
+class MLSTM(Params):
     def __init__(self, ctx: InitCtx, dim: int, n_heads: int,
                  proj_factor: float = 2.0):
         super().__init__()
         d_inner = int(dim * proj_factor)
         hd = d_inner // n_heads
         f32 = torch.float32
-        self.w_up = ctx.param((dim, d_inner))
-        self.w_gate = ctx.param((dim, d_inner))
-        self.wq = ctx.param((d_inner, n_heads, hd))
-        self.wk = ctx.param((d_inner, n_heads, hd))
-        self.wv = ctx.param((d_inner, n_heads, hd))
-        self.wi = ctx.param((d_inner, n_heads), scale=0.02, dtype=f32)
-        self.bi = ctx.param((n_heads,), zeros=True, dtype=f32)
-        self.wf = ctx.param((d_inner, n_heads), scale=0.02, dtype=f32)
-        self.bf = ctx.param((n_heads,), ones=True, dtype=f32)
-        self.gn_scale = ctx.param((d_inner,), ones=True, dtype=f32)
-        self.w_down = ctx.param((d_inner, dim))
+        qkv = ("rnn", "heads", "head_dim")
+        self.w_up = ctx.param((dim, d_inner), ("embed", "rnn"))
+        self.w_gate = ctx.param((dim, d_inner), ("embed", "rnn"))
+        self.wq = ctx.param((d_inner, n_heads, hd), qkv)
+        self.wk = ctx.param((d_inner, n_heads, hd), qkv)
+        self.wv = ctx.param((d_inner, n_heads, hd), qkv)
+        self.wi = ctx.param((d_inner, n_heads), ("rnn", "heads"), scale=0.02,
+                            dtype=f32)
+        self.bi = ctx.param((n_heads,), ("heads",), zeros=True, dtype=f32)
+        self.wf = ctx.param((d_inner, n_heads), ("rnn", "heads"), scale=0.02,
+                            dtype=f32)
+        self.bf = ctx.param((n_heads,), ("heads",), ones=True, dtype=f32)
+        self.gn_scale = ctx.param((d_inner,), ("rnn",), ones=True, dtype=f32)
+        self.w_down = ctx.param((d_inner, dim), ("rnn", "embed"))
 
 
 def init_mlstm_block(ctx: InitCtx, dim: int, n_heads: int,
@@ -67,14 +72,14 @@ def init_mlstm_block(ctx: InitCtx, dim: int, n_heads: int,
 
 
 def _mlstm_qkvif(p, x):
-    u = _mm(x, p.w_up)                                  # [B,S,di]
+    u = matmul(x, p.w_up)                                  # [B,S,di]
     q = einsum("bsd,dhk->bshk", u, p.wq)
     k = einsum("bsd,dhk->bshk", u, p.wk)
     v = einsum("bsd,dhk->bshk", u, p.wv)
     uf = u.float()
     log_i = uf @ p.wi + p.bi                            # [B,S,H]
-    log_f = F.logsigmoid(uf @ p.wf + p.bf)              # [B,S,H]
-    gate = F.silu(_mm(x, p.w_gate))
+    log_f = _log_sigmoid(uf @ p.wf + p.bf)              # [B,S,H]
+    gate = F.silu(matmul(x, p.w_gate))
     return u, q, k, v, log_i, log_f, gate
 
 
@@ -82,11 +87,11 @@ def _head_norm(h, n_heads: int, scale):
     """Per-head normalisation over the flattened head outputs, in float32,
     times `scale` (float32 result)."""
     b, s, di = h.shape
-    hf = h.float().reshape(b, s, n_heads, di // n_heads)
+    hf = reshape(h.float(), (b, s, n_heads, di // n_heads))
     mu = hf.mean(-1, keepdim=True)
     var = hf.var(-1, keepdim=True, unbiased=False)
     hf = (hf - mu) * torch.rsqrt(var + 1e-6)
-    return hf.reshape(b, s, di) * scale
+    return reshape(hf, (b, s, di)) * scale
 
 
 def _groupnorm(p, h, n_heads: int):
@@ -116,11 +121,11 @@ def mlstm_block(p, x) -> torch.Tensor:
     scores = einsum_f32("bthk,bshk->btsh", q, k) * (hd ** -0.5)
     scores = scores * w
     denom = torch.maximum(scores.sum(dim=2).abs(), torch.exp(-m[:, :, 0, :]))
-    hidden = torch.einsum("btsh,bshk->bthk", scores.to(v.dtype), v)
+    hidden = einsum("btsh,bshk->bthk", scores.to(v.dtype), v)
     hidden = hidden / torch.clamp(denom[..., None], min=1e-6) \
         .to(hidden.dtype)
-    hidden = _groupnorm(p, hidden.reshape(b, s, -1), n_heads) * gate
-    return _mm(hidden, p.w_down)
+    hidden = _groupnorm(p, reshape(hidden, (b, s, -1)), n_heads) * gate
+    return matmul(hidden, p.w_down)
 
 
 def _chunk_combine(e1, e2):
@@ -153,7 +158,7 @@ def mlstm_block_chunked(p, x, chunk: int = 256) -> torch.Tensor:
     nc = s // chunk
 
     def cs(a):                       # [B,S,...] -> [B,nc,L,...]
-        return a.reshape((b, nc, chunk) + tuple(a.shape[2:]))
+        return reshape(a, (b, nc, chunk) + tuple(a.shape[2:]))
 
     qc = cs(q) * (hd ** -0.5)
     kc, vc = cs(k), cs(v)
@@ -168,8 +173,8 @@ def mlstm_block_chunked(p, x, chunk: int = 256) -> torch.Tensor:
     mloc = w_src.amax(dim=2)                            # [B,nc,H]
     wsrc = torch.exp(w_src - mloc[:, :, None, :])
     kf, vf = kc.float(), vc.float()
-    C_con = torch.einsum("bnlh,bnlhk,bnlhv->bnhkv", wsrc, kf, vf)
-    n_con = torch.einsum("bnlh,bnlhk->bnhk", wsrc, kf)
+    C_con = einsum("bnlh,bnlhk,bnlhv->bnhkv", wsrc, kf, vf)
+    n_con = einsum("bnlh,bnlhk->bnhk", wsrc, kf)
 
     _, M, Cs, Ns = associative_scan(_chunk_combine,
                                     (a_tot, mloc, C_con, n_con), dim=1)
@@ -189,18 +194,19 @@ def mlstm_block_chunked(p, x, chunk: int = 256) -> torch.Tensor:
     w_sta = torch.exp(m_state - m_tot)
 
     scores = einsum_f32("bnthk,bnshk->bntsh", qc, kc) * w_loc
-    num_loc = torch.einsum("bntsh,bnshv->bnthv", scores, vf)
+    num_loc = einsum("bntsh,bnshv->bnthv", scores, vf)
     den_loc = scores.sum(dim=3)                         # [B,nc,L,H]
     qf = qc.float()
-    num_sta = torch.einsum("bnthk,bnhkv->bnthv", qf, C_in) \
+    num_sta = einsum("bnthk,bnhkv->bnthv", qf, C_in) \
         * w_sta[..., None]
-    den_sta = torch.einsum("bnthk,bnhk->bnth", qf, N_in) * w_sta
+    den_sta = einsum("bnthk,bnhk->bnth", qf, N_in) * w_sta
 
     num = num_loc + num_sta
     den = torch.maximum((den_loc + den_sta).abs(), torch.exp(-m_tot))
-    hidden = (num / torch.clamp(den[..., None], min=1e-6)).reshape(b, s, -1)
+    hidden = reshape(num / torch.clamp(den[..., None], min=1e-6),
+                     (b, s, -1))
     hidden = _groupnorm(p, hidden.to(x.dtype), n_heads) * gate
-    return _mm(hidden, p.w_down)
+    return matmul(hidden, p.w_down)
 
 
 def mlstm_final_state(p, x) -> Dict[str, torch.Tensor]:
@@ -213,8 +219,8 @@ def mlstm_final_state(p, x) -> Dict[str, torch.Tensor]:
     m = w_src.amax(dim=1)                               # [B,H]
     w = torch.exp(w_src - m[:, None, :])
     kf = k.float() * (hd ** -0.5)
-    C = torch.einsum("bsh,bshk,bshv->bhkv", w, kf, v.float())
-    n = torch.einsum("bsh,bshk->bhk", w, kf)
+    C = einsum("bsh,bshk,bshv->bhkv", w, kf, v.float())
+    n = einsum("bsh,bshk->bhk", w, kf)
     return {"C": C, "n": n, "m": m}
 
 
@@ -245,17 +251,17 @@ def mlstm_decode(p, x, state) -> Tuple[torch.Tensor, dict]:
     ip = torch.exp(log_i - m_new)
     kf = k.float() * (hd ** -0.5)
     C = fp[..., None, None] * state["C"] + ip[..., None, None] \
-        * torch.einsum("bhk,bhv->bhkv", kf, v.float())
+        * einsum("bhk,bhv->bhkv", kf, v.float())
     n = fp[..., None] * state["n"] + ip[..., None] * kf
 
     qf = q.float()
-    num = torch.einsum("bhkv,bhk->bhv", C, qf)
-    den = torch.maximum(torch.einsum("bhk,bhk->bh", n, qf).abs(),
+    num = einsum("bhkv,bhk->bhv", C, qf)
+    den = torch.maximum(einsum("bhk,bhk->bh", n, qf).abs(),
                         torch.exp(-m_new))
-    h = (num / torch.clamp(den[..., None], min=1e-6)).reshape(
-        x.shape[0], 1, -1)
+    h = reshape(num / torch.clamp(den[..., None], min=1e-6),
+                (x.shape[0], 1, -1))
     h = _groupnorm(p, h.to(x.dtype), n_heads) * gate
-    return _mm(h, p.w_down), {"C": C, "n": n, "m": m_new}
+    return matmul(h, p.w_down), {"C": C, "n": n, "m": m_new}
 
 
 # ---------------------------------------------------------------------------
@@ -265,22 +271,24 @@ def mlstm_decode(p, x, state) -> Tuple[torch.Tensor, dict]:
 GATES = ("z", "i", "f", "o")
 
 
-class SLSTM(nn.Module):
+class SLSTM(Params):
     def __init__(self, ctx: InitCtx, dim: int, n_heads: int,
                  ff_factor: float = 4.0 / 3.0):
         super().__init__()
         hd = dim // n_heads
         d_ff = int(dim * ff_factor)
         for g in GATES:
-            setattr(self, f"w_{g}", ctx.param((dim, dim)))
-            setattr(self, f"r_{g}", ctx.param((n_heads, hd, hd),
-                                              scale=0.5 / hd ** 0.5))
-            setattr(self, f"b_{g}", ctx.param((dim,), zeros=True,
+            setattr(self, f"w_{g}", ctx.param((dim, dim), ("embed", "rnn")))
+            setattr(self, f"r_{g}", ctx.param(
+                (n_heads, hd, hd), ("heads", "head_dim", "head_dim"),
+                scale=0.5 / hd ** 0.5))
+            setattr(self, f"b_{g}", ctx.param((dim,), ("rnn",), zeros=True,
                                               dtype=torch.float32))
-        self.gn_scale = ctx.param((dim,), ones=True, dtype=torch.float32)
-        self.w_up = ctx.param((dim, d_ff))
-        self.w_gate = ctx.param((dim, d_ff))
-        self.w_down = ctx.param((d_ff, dim))
+        self.gn_scale = ctx.param((dim,), ("rnn",), ones=True,
+                                  dtype=torch.float32)
+        self.w_up = ctx.param((dim, d_ff), ("embed", "ff"))
+        self.w_gate = ctx.param((dim, d_ff), ("embed", "ff"))
+        self.w_down = ctx.param((d_ff, dim), ("ff", "embed"))
 
 
 def init_slstm_block(ctx: InitCtx, dim: int, n_heads: int,
@@ -298,12 +306,14 @@ def _slstm_scan(p, wx, n_heads: int, state):
     xs = {g: wx[g].float() for g in GATES}
     c, n, h, m = state["c"], state["n"], state["h"], state["m"]
     hs = []
-    for t in range(s):
-        pre = {g: xs[g][:, t] + torch.einsum("bhk,hkj->bhj", h, r[g])
-               .reshape(b, d) + bias[g] for g in GATES}
+    # the dry-run's cost trace runs the body once (costs.slstm_correction
+    # adds the rest, as for the reference's while-loop body)
+    for t in range(1 if loop_once() else s):
+        pre = {g: xs[g][:, t] + reshape(einsum("bhk,hkj->bhj", h, r[g]),
+                                        (b, d)) + bias[g] for g in GATES}
         z = torch.tanh(pre["z"])
         log_i = pre["i"]
-        log_f = F.logsigmoid(pre["f"])
+        log_f = _log_sigmoid(pre["f"])
         o = torch.sigmoid(pre["o"])
         m_new = torch.maximum(log_f + m, log_i)
         fp = torch.exp(log_f + m - m_new)
@@ -311,9 +321,10 @@ def _slstm_scan(p, wx, n_heads: int, state):
         c = fp * c + ip * z
         n = fp * n + ip
         h_flat = o * c / torch.clamp(n, min=1e-6)
-        h, m = h_flat.reshape(b, n_heads, hd), m_new
+        h, m = reshape(h_flat, (b, n_heads, hd)), m_new
         hs.append(h_flat)
-    return torch.stack(hs, dim=1), {"c": c, "n": n, "h": h, "m": m}
+    return torch.stack(hs * (s // len(hs)), dim=1), \
+        {"c": c, "n": n, "h": h, "m": m}
 
 
 def init_slstm_state(batch: int, dim: int, n_heads: int, device=None
@@ -334,20 +345,21 @@ def _slstm_norm(p, h, n_heads: int):
 
 def _slstm_out(p, x, h, n_heads: int):
     h = _slstm_norm(p, h, n_heads).to(x.dtype)
-    up = gelu(_mm(h, p.w_up)) * _mm(h, p.w_gate)
-    return _mm(up, p.w_down)
+    up = gelu(matmul(h, p.w_up)) * matmul(h, p.w_gate)
+    return matmul(up, p.w_down)
 
 
 def slstm_block(p, x, n_heads: int) -> torch.Tensor:
+    x = constrain_seq_replicated(x)   # the time loop needs the sequence
     b, _, d = x.shape
-    wx = {g: _mm(x, getattr(p, f"w_{g}")) for g in GATES}
+    wx = {g: matmul(x, getattr(p, f"w_{g}")) for g in GATES}
     h, _ = _slstm_scan(p, wx, n_heads,
                        init_slstm_state(b, d, n_heads, device=x.device))
     return _slstm_out(p, x, h, n_heads)
 
 
 def slstm_decode(p, x, state, n_heads: int) -> Tuple[torch.Tensor, dict]:
-    wx = {g: _mm(x, getattr(p, f"w_{g}")) for g in GATES}
+    wx = {g: matmul(x, getattr(p, f"w_{g}")) for g in GATES}
     h, new_state = _slstm_scan(p, wx, n_heads, state)
     return _slstm_out(p, x, h, n_heads), new_state
 
@@ -356,6 +368,15 @@ def slstm_final_state(p, x, n_heads: int) -> Dict[str, torch.Tensor]:
     """The decode state after the sequence x [B, S, D]: the scan from
     zeros (prefill's cache fill)."""
     b, _, d = x.shape
-    wx = {g: _mm(x, getattr(p, f"w_{g}")) for g in GATES}
+    wx = {g: matmul(x, getattr(p, f"w_{g}")) for g in GATES}
     return _slstm_scan(p, wx, n_heads,
                        init_slstm_state(b, d, n_heads, device=x.device))[1]
+
+
+def slstm_analytic_flops(batch: int, seq: int, dim: int, n_heads: int) -> float:
+    """Analytic FLOPs of the sLSTM time loop: 4 recurrent matvecs per step
+    x the trip count (the reference's roofline correction, where XLA counts
+    a while-loop body once)."""
+    hd = dim // n_heads
+    per_step = 4 * (2 * n_heads * hd * hd) * batch   # 4 recurrent matvecs
+    return float(per_step * seq)

@@ -25,6 +25,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from .. import convert
+from ..models import sharding as shard_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +54,10 @@ def init(params, abstract: bool = False) -> OptState:
     named = convert.named_tensors(params)
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32,
-                           device="meta" if abstract else p.device)
+        if abstract:
+            return torch.zeros(p.shape, dtype=torch.float32, device="meta")
+        # a DTensor parameter's moments take its placements
+        return torch.zeros_like(p, dtype=torch.float32)
     dev = "meta" if abstract else next(iter(named.values())).device
     return OptState(mu={n: zeros(p) for n, p in named.items()},
                     nu={n: zeros(p) for n, p in named.items()},
@@ -109,7 +112,8 @@ def update(cfg: AdamWConfig, grads, state: OptState, params
     for name, p in named.items():
         g = grads.get(name)
         m, v = state.mu[name], state.nu[name]
-        g = (torch.zeros_like(m) if g is None else g.float()) * scale
+        g = (torch.zeros_like(m) if g is None
+             else shard_lib.like(g, m).float()) * scale
         m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
         v.mul_(cfg.b2).add_((g * (1 - cfg.b2)).mul_(g))
         del g

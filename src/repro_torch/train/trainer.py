@@ -45,6 +45,20 @@ class TrainerConfig:
     max_step_retries: int = 1
 
 
+def grads_of(cfg: ModelConfig, params, batch, scan: Optional[bool] = None,
+             remat: Optional[bool] = None):
+    """Autograd through transformer.loss_fn -> ({name: gradient or None},
+    the loss's metrics detached)."""
+    named = [(n, p) for n, p in params.named_parameters()
+             if p.requires_grad]
+    total, metrics = transformer.loss_fn(cfg, params, batch, scan=scan,
+                                         remat=remat)
+    gs = torch.autograd.grad(total, [p for _, p in named],
+                             allow_unused=True)
+    return ({n: g for (n, _), g in zip(named, gs)},
+            {k: v.detach() for k, v in metrics.items()})
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig,
                     scan: Optional[bool] = None,
                     remat: Optional[bool] = None,
@@ -52,29 +66,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig,
     """-> step(params, opt_state, batch) -> (params, opt_state, metrics),
     metrics {loss, aux, ppl, grad_norm, lr} as 0-d tensors. The step
     always writes in place; `donate` is accepted for the reference's
-    signature."""
-
-    def grads_of(params, batch):
-        named = [(n, p) for n, p in params.named_parameters()
-                 if p.requires_grad]
-        total, metrics = transformer.loss_fn(cfg, params, batch, scan=scan,
-                                             remat=remat)
-        gs = torch.autograd.grad(total, [p for _, p in named],
-                                 allow_unused=True)
-        return ({n: g for (n, _), g in zip(named, gs)},
-                {k: v.detach() for k, v in metrics.items()})
+    signature. Parameters may be DTensors (launch.steps), whose
+    accumulators take their placements."""
 
     def step(params, opt_state, batch):
         k = tcfg.microbatches
         if k > 1:
-            acc = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+            acc = {n: torch.zeros_like(p, dtype=torch.float32)
                    for n, p in params.named_parameters()}
             for i in range(k):
                 mb = {key: x.reshape((k, x.shape[0] // k)
                                      + tuple(x.shape[1:]))[i]
                       for key, x in batch.items()}
-                g, metrics = grads_of(params, mb)
+                g, metrics = grads_of(cfg, params, mb, scan, remat)
                 for n, gi in g.items():
                     if gi is not None:
                         acc[n].add_(gi)
@@ -82,7 +86,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig,
             grads = {n: a / k for n, a in acc.items()}
             del acc
         else:
-            grads, metrics = grads_of(params, batch)
+            grads, metrics = grads_of(cfg, params, batch, scan, remat)
         params, opt_state, opt_metrics = optim.update(
             tcfg.opt, grads, opt_state, params)
         return params, opt_state, {**metrics, **opt_metrics}

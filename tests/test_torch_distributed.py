@@ -17,6 +17,14 @@ same partitions:
     concatenation, ties included (the tournament in rank ^ j order, as the
     reference's ppermute merges), and with tie keys equal the keyed top-k
     on every rank; a world of 3 is refused.
+
+The same subprocess first runs the reference's sharded train step
+(`launch.steps.train_lowerable`, llama3-8b and phi3.5-moe at their smoke
+configs in float32, shape ("t", "train", 32, 8), compiled on 8 forced
+host devices as a (2, 4) mesh), then the 8 ranks run the port's step on
+the same weights with DTensor parameters and moments: the losses, and the
+gathered parameters and moments, agree within the training parity
+tolerances, and llama's also with the port's single-device step.
 """
 import dataclasses
 import json
@@ -182,13 +190,119 @@ def worker(rank, work):
             refused["k_mod_m"] = str(e)
         out["refused"] = refused
     out["staged"] = topk.host_staging()
+    out["train"] = train(rank, work, mesh)
     with open(f"{work}/out_{rank}.json", "w") as f:
         json.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
 
 
+TRAIN_ARCHS = ("llama3-8b", "phi3.5-moe")
+
+
+def smoke_f32(cfg):
+    from repro_torch.configs.smoke import smoke_config
+    base = smoke_config(cfg)
+    extra = dict(capacity_factor=float(base.n_experts)) \
+        if base.n_experts else {}
+    return dataclasses.replace(base, dtype="float32", remat=False, **extra)
+
+
+def train(rank, work, mesh):
+    """The port's sharded train step (launch.steps) on the JAX weights:
+    rank 0 writes the loss and the gathered parameters and moments."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import sharding
+    from repro_torch.train import optim
+    out = {}
+    tok = torch.from_numpy(np.load(f"{work}/train_tokens.npy"))
+    for name in TRAIN_ARCHS:
+        arch = get_arch(name)
+        cfg = smoke_f32(arch.config)
+        arch = dataclasses.replace(arch, config=cfg)
+        model = convert.params_from_arrays(
+            dict(np.load(f"{work}/train_w_{name}.npz")), cfg, "cpu")
+        lw = steps.train_lowerable(arch, ShapeConfig("t", "train", 32, 8),
+                                   mesh)
+        low = steps.lower(lw, mesh, (model, optim.init(model),
+                                     {"tokens": tok}))
+        placed = {n: list(map(str, p.placements))
+                  for n, p in model.named_parameters()}
+        want = {n: list(map(str, pl)) for n, pl in lw.in_shardings[0].items()}
+        sharding.reset_replicated_calls()
+        params, state, metrics = low()
+        full = {n: p.full_tensor() for n, p in params.named_parameters()}
+        mu = {n: t.full_tensor() for n, t in state.mu.items()}
+        nu = {n: t.full_tensor() for n, t in state.nu.items()}
+        loss = metrics["loss"]
+        loss = loss.full_tensor() if hasattr(loss, "full_tensor") else loss
+        if rank == 0:
+            arrays = convert.arrays_from_params(full, cfg)
+            arrays.update({f"mu/{k}": a for k, a in
+                           convert.arrays_from_params(mu, cfg).items()})
+            arrays.update({f"nu/{k}": a for k, a in
+                           convert.arrays_from_params(nu, cfg).items()})
+            np.savez(f"{work}/train_port_{name}.npz", **arrays)
+        out[name] = {"loss": float(loss), "placed_as_rules": placed == want,
+                     "replicated": sharding.replicated_calls(),
+                     "count": int(state.count)}
+    return out
+
+
+def reference_train(work):
+    """The JAX package's train_lowerable step on 8 forced host devices, a
+    (2, 4) mesh, as tests/test_distributed.py runs it, but compiled with
+    its in-shardings under the mesh and its activation-sharding rules:
+    writes the JAX weights, the loss and the updated leaves."""
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeConfig
+    from repro.configs.smoke import smoke_config
+    from repro.launch import steps
+    from repro.models import init_model
+    from repro.train import optim
+    assert jax.device_count() == 8
+    mesh = jax.make_mesh((2, 4), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+    def flat(tree):
+        return {"/".join(str(getattr(k, "key", k)) for k in path):
+                np.asarray(leaf) for path, leaf in
+                jax.tree_util.tree_flatten_with_path(tree)[0]}
+    tok = np.random.default_rng(11).integers(1, 512, (8, 32)).astype(np.int32)
+    np.save(f"{work}/train_tokens.npy", tok)
+    losses = {}
+    for name in TRAIN_ARCHS:
+        arch = get_arch(name)
+        base = smoke_config(arch.config)
+        extra = dict(capacity_factor=float(base.n_experts)) \
+            if base.n_experts else {}
+        cfg = dataclasses.replace(base, dtype="float32", remat=False,
+                                  **extra)
+        arch = dataclasses.replace(arch, config=cfg)
+        params, _ = init_model(cfg, jax.random.PRNGKey(1))
+        np.savez(f"{work}/train_w_{name}.npz", **flat(params))
+        lw = steps.train_lowerable(arch, ShapeConfig("t", "train", 32, 8),
+                                   mesh, scan=False)
+        args = jax.device_put((params, optim.init(params),
+                               {"tokens": jnp.asarray(tok)}),
+                              lw.in_shardings)
+        p2, o2, m = steps.lower(lw, mesh).compile()(*args)
+        arrays = flat(p2)
+        arrays.update({f"mu/{k}": a for k, a in flat(o2.mu).items()})
+        arrays.update({f"nu/{k}": a for k, a in flat(o2.nu).items()})
+        np.savez(f"{work}/train_ref_{name}.npz", **arrays)
+        losses[name] = float(m["loss"])
+    json.dump(losses, open(f"{work}/train_ref_loss.json", "w"))
+
+
 if __name__ == "__main__":
+    reference_train(sys.argv[1])
     mp.spawn(worker, args=(sys.argv[1],), nprocs=8, join=True)
     print("RANKS DONE")
 '''
@@ -346,3 +460,98 @@ def test_host_staging_helper_counts_and_logs(caplog):
     finally:
         topk._LOGGED = logged0
         topk.reset_host_staging()
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step (launch.steps) against the reference's
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("llama3-8b", "phi3.5-moe")
+LR_1 = 3e-4 / 100          # AdamWConfig's learning rate at count 1
+
+
+def _train_leaves(sharded, kind, name):
+    return dict(np.load(sharded["work"] / f"train_{kind}_{name}.npz"))
+
+
+def _assert_step_close(got, want, tag):
+    """Parameters and moments after one AdamW step, leaf by leaf, within
+    the training parity tolerances (test_torch_train.py): gradients agree
+    within 1e-4 x each leaf's max |g|, so mu = 0.1 g within 1e-4 x max
+    |mu| and nu = 0.05 g^2 within 2e-4 x max |nu|; parameters within
+    1e-6 x max |p| (test_update_matches_jax_leaf_by_leaf), except where
+    the gradient is within that tolerance of zero: there the first step's
+    g / |g| may take either sign, moving a parameter by up to 2 lr."""
+    assert sorted(got) == sorted(want)
+    for key, a in want.items():
+        b = got[key]
+        top = float(np.abs(a).max())
+        if key.startswith("mu/"):
+            np.testing.assert_allclose(b, a, rtol=0, atol=1e-4 * top,
+                                       err_msg=f"{tag} {key}")
+        elif key.startswith("nu/"):
+            np.testing.assert_allclose(b, a, rtol=0, atol=2e-4 * top,
+                                       err_msg=f"{tag} {key}")
+        else:
+            mu = want[f"mu/{key}"]
+            loose = np.abs(mu) <= 1e-4 * np.abs(mu).max()
+            atol = 1e-6 * top + np.where(loose, 2 * LR_1, 0.0)
+            assert np.all(np.abs(b - a) <= atol), \
+                (tag, key, float(np.abs(b - a).max()))
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+def test_sharded_train_step_matches_reference(sharded, name):
+    """One train_lowerable step on the (2, 4) mesh: the port's DTensor
+    step against the reference's compiled on 8 host devices under the
+    same rules (FSDP over data, TP and SP over model; phi3.5-moe's routing
+    in 4 groups, one per sequence shard)."""
+    ref_loss = json.loads((sharded["work"] / "train_ref_loss.json")
+                          .read_text())[name]
+    for out in sharded["outs"]:
+        tr = out["train"][name]
+        np.testing.assert_allclose(tr["loss"], ref_loss, rtol=1e-5)
+        assert tr["count"] == 1
+    _assert_step_close(_train_leaves(sharded, "port", name),
+                       _train_leaves(sharded, "ref", name), name)
+
+
+def test_sharded_llama_step_matches_single_device(sharded):
+    """The same step on one device (no mesh, no hooks)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.train import optim, trainer
+    base = smoke_config(get_arch("llama3-8b").config)
+    cfg = dataclasses.replace(base, dtype="float32", remat=False)
+    model = convert.params_from_arrays(
+        _train_leaves(sharded, "w", "llama3-8b"), cfg, "cpu")
+    tok = torch.from_numpy(np.load(sharded["work"] / "train_tokens.npy"))
+    step = trainer.make_train_step(cfg, trainer.TrainerConfig(), remat=True)
+    model, state, m = step(model, optim.init(model), {"tokens": tok})
+    single = convert.arrays_from_params(model)
+    for field in ("mu", "nu"):
+        single.update({f"{field}/{k}": a for k, a in
+                       convert.arrays_from_params(getattr(state, field),
+                                                  cfg).items()})
+    for out in sharded["outs"]:
+        np.testing.assert_allclose(out["train"]["llama3-8b"]["loss"],
+                                   float(m["loss"]), rtol=1e-5)
+    _assert_step_close(_train_leaves(sharded, "port", "llama3-8b"), single,
+                       "single")
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+def test_sharded_step_places_and_falls_back_by_name(sharded, name):
+    """Every parameter is a DTensor under its rule placements, and the
+    only ops that ran replicated are the MoE sort dispatch and combine,
+    once per MoE layer, each counted by name."""
+    from repro_torch.configs import get_arch
+    layers = 2
+    for out in sharded["outs"]:
+        tr = out["train"][name]
+        assert tr["placed_as_rules"]
+        if get_arch(name).config.n_experts:
+            assert tr["replicated"] == {"moe dispatch": layers,
+                                        "moe combine": layers}
+        else:
+            assert tr["replicated"] == {}

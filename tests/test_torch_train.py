@@ -170,17 +170,38 @@ def test_loss_and_grads_match_jax(name):
 @pytest.mark.parametrize("name", ["llama3-8b", "phi3.5-moe",
                                   "recurrentgemma-2b", "xlstm-350m",
                                   "whisper-medium"])
-def test_remat_on_and_off_give_equal_gradients(name):
+def test_remat_on_and_off_give_equal_gradients(name, monkeypatch):
     """torch.utils.checkpoint around each period (and the tail) recomputes
-    the same ops: the gradients have the same bits."""
+    the same ops: the gradients have the same bits, under either
+    REPRO_REMAT_POLICY (nothing_saveable, and `dots`, which keeps the
+    unbatched products' outputs)."""
     _, tcfg = _configs(name)
     model = init_model(tcfg, 2, device="cpu")
     _, tb = _batches(tcfg, seed=4)
     off = port_grads(tcfg, model, tb, remat=False)
-    on = port_grads(tcfg, model, tb, remat=True)
-    assert torch.equal(on[0], off[0])
-    for n, g in off[2].items():
-        assert torch.equal(on[2][n], g), n
+    for policy in ("nothing", "dots"):
+        monkeypatch.setenv("REPRO_REMAT_POLICY", policy)
+        on = port_grads(tcfg, model, tb, remat=True)
+        assert torch.equal(on[0], off[0]), policy
+        for n, g in off[2].items():
+            assert torch.equal(on[2][n], g), (policy, n)
+
+
+def test_dots_policy_saves_the_unbatched_products():
+    """`dots` keeps mm / addmm outputs and a bmm's with a batch of one (a
+    projection through torch.einsum); the attention's batched products
+    and everything else are recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    a, b = torch.zeros(1, 4, 8), torch.zeros(1, 8, 2)
+    pol = transformer._saves_dots
+    assert pol(None, aten.mm.default, a[0], b[0]) == \
+        CheckpointPolicy.MUST_SAVE
+    assert pol(None, aten.bmm.default, a, b) == CheckpointPolicy.MUST_SAVE
+    assert pol(None, aten.bmm.default, a.expand(3, 4, 8),
+               b.expand(3, 8, 2)) == CheckpointPolicy.PREFER_RECOMPUTE
+    assert pol(None, aten.mul.Tensor, a, a) == \
+        CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def test_loss_masks_the_prefix_and_the_last_position():

@@ -1,0 +1,6 @@
+"""Registers the marker of the tests that need a CUDA card (nothing else)."""
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skipped where none is present)")

@@ -1,0 +1,6 @@
+"""engine.plan_ms: the program's `plan` span
+(MicroNN.query(..., trace=True)), mean milliseconds a traced call."""
+
+
+def read(run):
+    return run.span_mean_ms("plan")

@@ -1,0 +1,6 @@
+"""executor.probe_ms: the program's `probe` span
+(MicroNN.query(..., trace=True)), mean milliseconds a traced call."""
+
+
+def read(run):
+    return run.span_mean_ms("probe")

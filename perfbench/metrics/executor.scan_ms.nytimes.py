@@ -1,0 +1,7 @@
+"""executor.scan_ms.nytimes: executor.scan_ms (the `scan` span, mean
+milliseconds a traced call) in the NYTimes cell, where the rate is not
+bounded end to end."""
+
+
+def read(run):
+    return run.span_mean_ms("scan")

@@ -50,18 +50,20 @@ Differences from the JAX package, each deliberate:
     libraries it loaded (`compiled`, build.load_count()) where the
     reference counts jit traces.
 
-Tracing (obs/trace.py): with a trace active on the calling thread, `run`
-records the probe, scan, rerank and merge spans (resident: rerank and
-merge run inside the scan call and are timed within its span, `fused=1`,
-as in the reference), and `paged_search` its probe, per-chunk scan,
-rerank and merge spans beside the pager's fault spans. A traced call
-synchronises the device at span boundaries, so a span times the work and
-not its launch; an untraced call never does.
+Tracing (obs/trace.py): every search runs its stages through
+`obs_trace.stage`, each where its work is done: probe (the plan's probe
+union, the gather plan's probes, the pre-filter compaction; the exact
+plan's "every partition"), scan (the fused K1 / K2 call, or the gather
+plan's scoring), rerank (the int8 tier's float32 rerank, from SQLite
+when paged) and merge (the delta epilogue), with the pager's fault spans
+between a paged search's probe and scans. With a trace active a stage
+adds its host time and counters to its span; under torch.profiler it is
+a "micronn.<stage>" range. No stage waits for the device: the probe
+union's size stays a device tensor until the trace's finish reads it.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -100,12 +102,6 @@ def run_count() -> int:
     """Fused scan calls made in this process (run / run_coalesced /
     paged_search, one each)."""
     return _RUN_COUNT
-
-
-def _sync(device: torch.device) -> None:
-    """Wait for the device's queued work (traced calls only)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _scan_launches() -> int:
@@ -152,10 +148,13 @@ def find_nearest_centroids(index: IVFIndex, q: torch.Tensor, n_probe: int):
 
 def _probe_union(centroids, counts, metric, q, n_probe,
                  u_max: Optional[int] = None,
-                 qmask: Optional[torch.Tensor] = None):
+                 qmask: Optional[torch.Tensor] = None,
+                 stage=obs_trace.NO_STAGE):
     """Shared probe set + per-query selection (paper §3.4): the union is
     the u_max most-voted partitions, ordered by (votes desc, pid asc), and
-    `qsel` masks each query back onto its own probes."""
+    `qsel` masks each query back onto its own probes. A live `stage` is
+    given the partitions any query probes (before the u_max cut) as a
+    device tensor."""
     kp = centroids.shape[0]
     Q = q.shape[0]
     n_probe = min(n_probe, kp)
@@ -168,6 +167,8 @@ def _probe_union(centroids, counts, metric, q, n_probe,
     if qmask is not None:
         sel = sel & qmask[:, None]
     votes = sel.sum(dim=0)                                 # [kp]
+    if stage:
+        stage.note(partitions=torch.count_nonzero(votes))
     upart = _stable_topk_idx(-votes, u_max)                # votes desc
     qsel = sel[:, upart] & (votes[upart] > 0)[None, :]
     return upart.to(torch.int32), qsel
@@ -198,9 +199,13 @@ def plan_ann(index: IVFIndex, queries: torch.Tensor, k: int, n_probe: int,
     """ANN / batched-MQO plan: per-query probe sets over one shared scan
     union; `qmask` False rows (bucket padding) cast no votes."""
     cfg = index.config
-    q = normalize_if_cosine(queries.to(torch.float32), cfg.metric)
-    upart, qsel = _probe_union(index.centroids, index.counts, cfg.metric, q,
-                               n_probe, u_max=u_max, qmask=qmask)
+    with obs_trace.stage(obs_trace.STAGE_PROBE) as st:
+        q = normalize_if_cosine(queries.to(torch.float32), cfg.metric)
+        upart, qsel = _probe_union(index.centroids, index.counts, cfg.metric,
+                                   q, n_probe, u_max=u_max, qmask=qmask,
+                                   stage=st)
+        if st:
+            st.note(n_probe=int(min(n_probe, index.k)), kind="ann")
     return QueryPlan(queries=q, part_ids=upart, qsel=qsel, k=k, kind="ann",
                      attr_filter=attr_filter)
 
@@ -214,14 +219,25 @@ SMALL_Q_GATHER_MAX = 8
 
 def plan_ann_gather(index: IVFIndex, queries: torch.Tensor, k: int,
                     n_probe: int,
-                    attr_filter: Optional[AttrFilter] = None) -> QueryPlan:
+                    attr_filter: Optional[AttrFilter] = None,
+                    qmask: Optional[torch.Tensor] = None) -> QueryPlan:
     """Small-Q ANN plan: each query's own n_probe nearest partitions, no
     shared union. Execution gathers each query's [n_probe, p_max] block
     and scores it directly; the candidate set is plan_ann's at equal
     n_probe, so ids agree and scores agree within float32 summation
-    order."""
-    q = normalize_if_cosine(queries.to(torch.float32), index.config.metric)
-    parts = find_nearest_centroids(index, q, n_probe)       # [Q, n]
+    order. `qmask` False rows (bucket padding) are left out of the probe
+    span's count."""
+    with obs_trace.stage(obs_trace.STAGE_PROBE) as st:
+        q = normalize_if_cosine(queries.to(torch.float32),
+                                index.config.metric)
+        parts = find_nearest_centroids(index, q, n_probe)   # [Q, n]
+        if st:
+            sel = torch.zeros((q.shape[0], index.k), dtype=torch.bool,
+                              device=q.device).scatter_(1, parts, True)
+            if qmask is not None:
+                sel = sel & qmask[:, None]
+            st.note(partitions=sel.any(dim=0).sum(),
+                    n_probe=int(min(n_probe, index.k)), kind="ann")
     return QueryPlan(queries=q, part_ids=None, qsel=None, k=k,
                      kind="ann_gather", attr_filter=attr_filter,
                      parts_pq=parts.to(torch.int32))
@@ -230,11 +246,15 @@ def plan_ann_gather(index: IVFIndex, queries: torch.Tensor, k: int,
 def plan_exact(index: IVFIndex, queries: torch.Tensor, k: int,
                attr_filter: Optional[AttrFilter] = None) -> QueryPlan:
     """Exact plan: probe set = every partition, no selection mask."""
-    q = normalize_if_cosine(queries.to(torch.float32), index.config.metric)
-    return QueryPlan(queries=q,
-                     part_ids=torch.arange(index.k, dtype=torch.int32,
-                                           device=q.device),
-                     qsel=None, k=k, kind="exact", attr_filter=attr_filter)
+    with obs_trace.stage(obs_trace.STAGE_PROBE) as st:
+        q = normalize_if_cosine(queries.to(torch.float32),
+                                index.config.metric)
+        part_ids = torch.arange(index.k, dtype=torch.int32, device=q.device)
+        if st:
+            st.note(partitions=int(index.k), n_probe=int(index.k),
+                    kind="exact")
+    return QueryPlan(queries=q, part_ids=part_ids, qsel=None, k=k,
+                     kind="exact", attr_filter=attr_filter)
 
 
 def compact_rows(ok: torch.Tensor, cap: int) -> torch.Tensor:
@@ -258,13 +278,17 @@ def plan_prefilter(index: IVFIndex, queries: torch.Tensor, k: int,
     compact the qualifying row indices into the `cap` budget; execution
     brute-forces over just those rows, so its cost follows the predicate's
     selectivity."""
-    q = normalize_if_cosine(queries.to(torch.float32), index.config.metric)
-    kp, p_max, _ = index.vectors.shape
-    ok = index.valid.reshape(-1) & attr_filter(
-        index.attrs.reshape(kp * p_max, index.n_attr))
+    with obs_trace.stage(obs_trace.STAGE_PROBE) as st:
+        q = normalize_if_cosine(queries.to(torch.float32),
+                                index.config.metric)
+        kp, p_max, _ = index.vectors.shape
+        ok = index.valid.reshape(-1) & attr_filter(
+            index.attrs.reshape(kp * p_max, index.n_attr))
+        rows = compact_rows(ok, cap)
+        if st:
+            st.note(partitions=0, rows_cap=int(cap), kind="prefilter")
     return QueryPlan(queries=q, part_ids=None, qsel=None, k=k,
-                     kind="prefilter", attr_filter=attr_filter,
-                     rows=compact_rows(ok, cap))
+                     kind="prefilter", attr_filter=attr_filter, rows=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -419,7 +443,8 @@ def gather_rows(index: IVFIndex, rows: torch.Tensor):
 
 def execute_plan(index: IVFIndex, plan: QueryPlan,
                  quantized: Optional[bool] = None) -> SearchResult:
-    """Run a QueryPlan through the fused scan + delta epilogue.
+    """Run a QueryPlan through the fused scan + delta epilogue, as the
+    stages scan, rerank (the int8 tier only) and merge.
 
     `quantized` selects the scan tier on an index with int8 codes: None
     uses the codes when present, False forces float32, True requires
@@ -427,12 +452,38 @@ def execute_plan(index: IVFIndex, plan: QueryPlan,
     100%-recall contract over the float32 tier."""
     cfg = index.config
     q = plan.queries
-    p_max = index.p_max
-    f = plan.attr_filter
     if quantized is None:
         quantized = index.codes is not None
     elif quantized and index.codes is None:
         raise ValueError("quantized=True needs an index with int8 codes")
+    with obs_trace.stage(obs_trace.STAGE_SCAN) as st:
+        if st:
+            l0, c0 = _scan_launches(), build.load_count()
+        s, i, k_scan, cand_rows = _scan_plan(index, plan, quantized)
+        if st:
+            _note_scan(st, index, plan, cand_rows is not None,
+                       _scan_launches() - l0, build.load_count() - c0)
+    if cand_rows is not None:
+        # stage 2 of the two-stage search: the exact float32 rerank
+        with obs_trace.stage(obs_trace.STAGE_RERANK) as st:
+            s, i = _rerank_float32(index, q, cand_rows, k_scan)
+            if st:
+                _note_rerank(st, index, plan)
+    with obs_trace.stage(obs_trace.STAGE_MERGE) as st:
+        s, i = _merge_epilogue(index.delta, cfg.metric, q, s, i, plan.k,
+                               k_scan, plan.attr_filter)
+        if st:
+            st.note(fused=1)
+    return SearchResult(ids=i, scores=s)
+
+
+def _scan_plan(index: IVFIndex, plan: QueryPlan, quantized: bool):
+    """The plan's scan -> (scores, ids, k_scan, cand_rows). On the int8
+    tier the scan selects k' candidate rows for the float32 rerank
+    (`cand_rows`; scores and ids None), else cand_rows is None."""
+    cfg = index.config
+    q = plan.queries
+    p_max = index.p_max
     if plan.kind == "prefilter":
         # repack the qualifying rows into virtual partitions for the same
         # scan (the predicate was applied at compaction)
@@ -440,44 +491,61 @@ def execute_plan(index: IVFIndex, plan: QueryPlan,
         k_scan = min(plan.k, sub_ok.numel())
         s, i = fused_scan(q, sub_v, sub_ok, sub_i, vpart, k_scan,
                           metric=cfg.metric)
-        s, i = _merge_epilogue(index.delta, cfg.metric, q, s, i, plan.k,
-                               k_scan, f)
-        return SearchResult(ids=i, scores=s)
+        return s, i, k_scan, None
     if plan.kind == "ann_gather":
-        s, i, k_scan = _execute_gather(index, plan, quantized)
-        s, i = _merge_epilogue(index.delta, cfg.metric, q, s, i, plan.k,
-                               k_scan, f)
-        return SearchResult(ids=i, scores=s)
-    keep, attrs, prog = scan_filter(f, index.attrs)
+        return _scan_gather(index, plan, quantized)
+    keep, attrs, prog = scan_filter(plan.attr_filter, index.attrs)
     n = plan.part_ids.shape[0]
     if quantized and plan.kind == "ann":
-        # two-stage: the int8 scan selects k' candidate rows, then the
-        # exact float32 rerank; the kernel emits -1 itself where fewer
-        # than k' rows qualify, so nothing is re-emitted
+        # the int8 scan selects k' candidate rows; the kernel emits -1
+        # itself where fewer than k' rows qualify, so nothing is re-emitted
         k_cand = min(max(plan.k, plan.k * cfg.rerank_factor), n * p_max)
         _, cand_rows = fused_sq_scan(
             q, index.codes, index.qstats, index.valid, plan.part_ids,
             k_cand, metric=cfg.metric, qsel=plan.qsel, keep=keep,
             norms=index.code_norms, attrs=attrs, program=prog)
-        k_scan = min(plan.k, k_cand)
-        s, i = _rerank_float32(index, q, cand_rows, k_scan)
-    else:
-        k_scan = min(plan.k, n * p_max)
-        s, i = fused_scan(q, index.vectors, index.valid, index.ids,
-                          plan.part_ids, k_scan, metric=cfg.metric,
-                          qsel=plan.qsel, keep=keep, attrs=attrs,
-                          program=prog)
-    s, i = _merge_epilogue(index.delta, cfg.metric, q, s, i, plan.k, k_scan,
-                           f)
-    return SearchResult(ids=i, scores=s)
+        return None, None, min(plan.k, k_cand), cand_rows
+    k_scan = min(plan.k, n * p_max)
+    s, i = fused_scan(q, index.vectors, index.valid, index.ids,
+                      plan.part_ids, k_scan, metric=cfg.metric,
+                      qsel=plan.qsel, keep=keep, attrs=attrs, program=prog)
+    return s, i, k_scan, None
 
 
-def _execute_gather(index: IVFIndex, plan: QueryPlan, quantized: bool):
+def _note_scan(st, index: IVFIndex, plan: QueryPlan, use_sq: bool,
+               launches: int, compiled: int) -> None:
+    """The scan span's counters: the probed partitions and their rows,
+    one chunk, the K1/K2 launches and kernel loads of the scan, fused=1
+    (the plan's stages run in one call, as in the reference). The probe
+    span's count is a device tensor on the ann routes; without a probe
+    span every partition counts."""
+    n = st.trace.counter(obs_trace.STAGE_PROBE, "partitions",
+                         default=int(index.k))
+    st.note(partitions=n, rows=n * index.p_max, chunks=1,
+            backend=_own_backend(index), q_bucket=int(plan.queries.shape[0]),
+            quantized=use_sq, launches=launches, compiled=compiled,
+            cache_hit=(compiled == 0), fused=1)
+
+
+def _note_rerank(st, index: IVFIndex, plan: QueryPlan) -> None:
+    """The rerank span's counters: each query's k' candidates, at most the
+    scan's rows."""
+    rf = index.config.rerank_factor
+    kc = max(plan.k, plan.k * rf)
+    rows = st.trace.counter(obs_trace.STAGE_SCAN, "rows")
+    per_q = torch.clamp(rows, max=kc) if isinstance(rows, torch.Tensor) \
+        else min(kc, rows)
+    st.note(fused=1, rf=int(rf), candidates=int(plan.queries.shape[0])
+            * per_q)
+
+
+def _scan_gather(index: IVFIndex, plan: QueryPlan, quantized: bool):
     """The small-Q gather plan (plain PyTorch, the "torch" backend): each
     query's [n_probe, p_max] probe block scored directly. An int8 index
     keeps the two-stage contract: the int8-domain gathered scan (both
-    folded terms in one exact contraction) for k' candidate rows, then the
-    float32 rerank. -> (scores, ids, k_scan)."""
+    folded terms in one exact contraction) for k' candidate rows, which
+    execute_plan reranks in float32. -> (scores, ids, k_scan, cand_rows),
+    as _scan_plan."""
     cfg = index.config
     q = plan.queries
     kp, p_max, d = index.vectors.shape
@@ -517,9 +585,7 @@ def _execute_gather(index: IVFIndex, plan: QueryPlan, quantized: bool):
         cand_rows = torch.where(cand_s >= MASKED_SCORE,
                                 torch.full_like(cand_rows, INVALID_ID),
                                 cand_rows)
-        k_scan = min(plan.k, k_cand)
-        s, i = _rerank_float32(index, q, cand_rows, k_scan)
-        return s, i, k_scan
+        return None, None, min(plan.k, k_cand), cand_rows
     pv = index.vectors[parts]                              # [Q, n, p_max, d]
     dots = torch.einsum("qd,qnpd->qnp", q, pv)
     if cfg.metric in ("ip", "cosine"):
@@ -530,7 +596,7 @@ def _execute_gather(index: IVFIndex, plan: QueryPlan, quantized: bool):
     k_scan = min(plan.k, npb * p_max)
     s, i = topk_smallest(scores, index.ids[parts].reshape(n_q, npb * p_max),
                          k_scan)
-    return s, i, k_scan
+    return s, i, k_scan, None
 
 
 def _spec_filter(spec: QuerySpec) -> Optional[AttrFilter]:
@@ -563,7 +629,8 @@ def _run_spec(index: IVFIndex, queries: torch.Tensor,
           and _backend(index, spec) == "torch"):
         # small (bucketed) batches on the plain backend skip the shared
         # union, as the reference does off the TPU kernel path
-        plan = plan_ann_gather(index, queries, spec.k, spec.n_probe, f)
+        plan = plan_ann_gather(index, queries, spec.k, spec.n_probe, f,
+                               qmask=qmask)
     else:
         plan = plan_ann(index, queries, spec.k, spec.n_probe, f,
                         u_max=spec.u_max, qmask=qmask)
@@ -608,18 +675,7 @@ def run(index, queries, spec: QuerySpec, *,
                                       device=dev)])
     qmask = torch.arange(b, device=dev) < Q
     _RUN_COUNT += 1
-    tr = obs_trace.current()
-    if tr is None:
-        res = _run_spec(index, q, qmask, spec)
-    else:
-        _record_resident_probe(tr, index, q[:Q], spec)
-        l0, c0 = _scan_launches(), build.load_count()
-        t0 = time.perf_counter()
-        res = _run_spec(index, q, qmask, spec)
-        _sync(dev)
-        _record_resident_scan(tr, index, spec, b,
-                              (time.perf_counter() - t0) * 1e3,
-                              _scan_launches() - l0, build.load_count() - c0)
+    res = _run_spec(index, q, qmask, spec)
     if b != Q:
         res = SearchResult(ids=res.ids[:Q], scores=res.scores[:Q])
     return ResultSet.of(res, spec)
@@ -644,55 +700,6 @@ def check_scan_k(index, spec: QuerySpec) -> None:
     if k_scan > MAX_SCAN_K:
         raise ValueError(f"QuerySpec k={spec.k}: the scan's k_scan={k_scan} "
                          f"exceeds MAX_SCAN_K={MAX_SCAN_K}")
-
-
-def _record_resident_probe(tr, index: IVFIndex, q: torch.Tensor,
-                           spec: QuerySpec) -> None:
-    """Probe span of a traced resident query. The probe runs inside the
-    scan call, so the span re-derives it from the same centroids with the
-    same op (find_nearest_centroids) -- extra work on traced queries only."""
-    kp = index.k
-    if spec.kind == "exact":
-        tr.record(obs_trace.STAGE_PROBE, 0.0, partitions=int(kp),
-                  n_probe=int(kp), kind="exact")
-        return
-    if spec.predicate is not None and spec.hybrid == "pre":
-        tr.record(obs_trace.STAGE_PROBE, 0.0, partitions=0,
-                  rows_cap=int(spec.cap or 0), kind="prefilter")
-        return
-    t0 = time.perf_counter()
-    qn = normalize_if_cosine(q.to(torch.float32), index.config.metric)
-    parts = torch.unique(find_nearest_centroids(index, qn, spec.n_probe))
-    tr.record(obs_trace.STAGE_PROBE, (time.perf_counter() - t0) * 1e3,
-              partitions=int(parts.numel()),
-              n_probe=int(min(spec.n_probe, kp)), kind="ann")
-
-
-def _record_resident_scan(tr, index: IVFIndex, spec: QuerySpec, b: int,
-                          dt_ms: float, launches: int,
-                          compiled: int) -> None:
-    """Scan / rerank / merge spans of a traced resident query: the scan
-    call covers all three, so rerank and merge are markers (fused=1) whose
-    time is in the scan span."""
-    kp, p_max = index.k, index.p_max
-    quantized = spec.use_quantized
-    if quantized is None:
-        quantized = index.codes is not None
-    use_sq = bool(quantized) and spec.kind == "ann" and \
-        spec.hybrid != "pre"
-    n_parts = tr.counter(obs_trace.STAGE_PROBE, "partitions",
-                         default=int(kp))
-    tr.record(obs_trace.STAGE_SCAN, dt_ms,
-              partitions=n_parts, rows=n_parts * p_max, chunks=1,
-              backend=_backend(index, spec), q_bucket=b, quantized=use_sq,
-              launches=launches, compiled=compiled,
-              cache_hit=(compiled == 0), fused=1)
-    if use_sq:
-        rf = index.config.rerank_factor
-        tr.record(obs_trace.STAGE_RERANK, 0.0, fused=1, rf=int(rf),
-                  candidates=b * min(max(spec.k, spec.k * rf),
-                                     n_parts * p_max))
-    tr.record(obs_trace.STAGE_MERGE, 0.0, fused=1)
 
 
 def run_coalesced(index: IVFIndex, chunks, spec: QuerySpec):
@@ -747,29 +754,27 @@ def _rerank_from_store(store, q: torch.Tensor, cand_ids: torch.Tensor,
     rows' float32 vectors from SQLite (one batched IN (...) over the
     unique asset ids), normalised on the host by the op recover() uses for
     the resident tier, and rescore them with the same _rescore_exact."""
-    tr = obs_trace.current()
-    t0 = time.perf_counter() if tr is not None else 0.0
-    cand = cand_ids.cpu().numpy()
-    got = cand != INVALID_ID
-    Q, kc = cand.shape
-    v = np.zeros((Q, kc, store.dim), np.float32)
-    n_uniq = 0
-    if got.any():
-        uniq = np.unique(cand[got])
-        n_uniq = int(uniq.size)
-        rows, found = store.vectors_for(uniq)
-        rows = normalize_rows(rows, metric)
-        idx = np.searchsorted(uniq, np.where(got, cand, uniq[0]))
-        idx = np.clip(idx, 0, len(uniq) - 1)
-        got = got & (uniq[idx] == cand) & found[idx]
-        v[got] = rows[idx[got]]
-    dev = cand_ids.device
-    out = _rescore_exact(q, to_device([v], dev)[0], to_device([got], dev)[0],
-                         cand_ids, k_out, metric)
-    if tr is not None:
-        _sync(dev)
-        tr.record(obs_trace.STAGE_RERANK, (time.perf_counter() - t0) * 1e3,
-                  candidates=Q * kc, rows_gathered=n_uniq, k_out=k_out)
+    with obs_trace.stage(obs_trace.STAGE_RERANK) as st:
+        cand = cand_ids.cpu().numpy()
+        got = cand != INVALID_ID
+        Q, kc = cand.shape
+        v = np.zeros((Q, kc, store.dim), np.float32)
+        n_uniq = 0
+        if got.any():
+            uniq = np.unique(cand[got])
+            n_uniq = int(uniq.size)
+            rows, found = store.vectors_for(uniq)
+            rows = normalize_rows(rows, metric)
+            idx = np.searchsorted(uniq, np.where(got, cand, uniq[0]))
+            idx = np.clip(idx, 0, len(uniq) - 1)
+            got = got & (uniq[idx] == cand) & found[idx]
+            v[got] = rows[idx[got]]
+        dev = cand_ids.device
+        out = _rescore_exact(q, to_device([v], dev)[0],
+                             to_device([got], dev)[0], cand_ids, k_out,
+                             metric)
+        if st:
+            st.note(candidates=Q * kc, rows_gathered=n_uniq, k_out=k_out)
     return out
 
 
@@ -851,21 +856,17 @@ def paged_search(pindex: PagedIndex, queries, *, k: int, kind: str = "ann",
     if attr_filter is not None and cache.attrs_pool is None:
         raise ValueError("a predicate needs an attribute-backed frame pool "
                          "(a store with n_attr > 0)")
-    tr = obs_trace.current()
-    t_probe = time.perf_counter() if tr is not None else 0.0
-    if kind == "exact":
-        upart = np.nonzero(pindex.counts > 0)[0].astype(np.int64)
-        qsel = qmask[:, None].expand(b, len(upart))
-    elif kind == "ann":
-        upart, qsel = _paged_probes(pindex, q, n_probe, qmask=qmask)
-    else:
+    if kind not in ("ann", "exact"):
         raise ValueError(f"kind must be 'ann' or 'exact': {kind!r}")
-    n = len(upart)
-    if tr is not None:
-        _sync(dev)
-        tr.record(obs_trace.STAGE_PROBE,
-                  (time.perf_counter() - t_probe) * 1e3,
-                  partitions=int(n), n_probe=int(n_probe), kind=kind)
+    with obs_trace.stage(obs_trace.STAGE_PROBE) as st:
+        if kind == "exact":
+            upart = np.nonzero(pindex.counts > 0)[0].astype(np.int64)
+            qsel = qmask[:, None].expand(b, len(upart))
+        else:
+            upart, qsel = _paged_probes(pindex, q, n_probe, qmask=qmask)
+        n = len(upart)
+        if st:
+            st.note(partitions=int(n), n_probe=int(n_probe), kind=kind)
     p_max = cache.p_max
     if use_sq:
         k_run = min(max(k, k * cfg.rerank_factor), max(n * p_max, 1))
@@ -901,32 +902,29 @@ def paged_search(pindex: PagedIndex, queries, *, k: int, kind: str = "ann",
                                                 cache.attrs_pool)
                 cq = qsel[:, s:s + chunk]
                 k_chunk = min(k_run, len(cpids) * p_max)
-                if tr is not None:
-                    _sync(dev)
-                    t_scan = time.perf_counter()
-                    l0, c0 = _scan_launches(), build.load_count()
-                if use_sq:
-                    cs, ci = fused_sq_scan(
-                        q, cache.payload_pool, pindex.qstats,
-                        cache.valid_pool, fidx, k_chunk, metric=cfg.metric,
-                        qsel=cq, keep=keep, norms=cache.norms_pool,
-                        ids=cache.ids_pool, attrs=attrs, program=prog)
-                else:
-                    cs, ci = fused_scan(
-                        q, cache.payload_pool, cache.valid_pool,
-                        cache.ids_pool, fidx, k_chunk, metric=cfg.metric,
-                        qsel=cq, keep=keep, attrs=attrs, program=prog)
-                if tr is not None:
-                    _sync(dev)
-                    compiled = build.load_count() - c0
-                    tr.record(obs_trace.STAGE_SCAN,
-                              (time.perf_counter() - t_scan) * 1e3,
-                              chunks=1, partitions=len(cpids),
-                              rows=len(cpids) * p_max,
-                              backend=_own_backend(pindex),
-                              quantized=use_sq, q_bucket=b,
-                              launches=_scan_launches() - l0,
-                              compiled=compiled, cache_hit=compiled == 0)
+                with obs_trace.stage(obs_trace.STAGE_SCAN) as st:
+                    if st:
+                        l0, c0 = _scan_launches(), build.load_count()
+                    if use_sq:
+                        cs, ci = fused_sq_scan(
+                            q, cache.payload_pool, pindex.qstats,
+                            cache.valid_pool, fidx, k_chunk,
+                            metric=cfg.metric, qsel=cq, keep=keep,
+                            norms=cache.norms_pool, ids=cache.ids_pool,
+                            attrs=attrs, program=prog)
+                    else:
+                        cs, ci = fused_scan(
+                            q, cache.payload_pool, cache.valid_pool,
+                            cache.ids_pool, fidx, k_chunk, metric=cfg.metric,
+                            qsel=cq, keep=keep, attrs=attrs, program=prog)
+                    if st:
+                        compiled = build.load_count() - c0
+                        st.note(chunks=1, partitions=len(cpids),
+                                rows=len(cpids) * p_max,
+                                backend=_own_backend(pindex),
+                                quantized=use_sq, q_bucket=b,
+                                launches=_scan_launches() - l0,
+                                compiled=compiled, cache_hit=compiled == 0)
             finally:
                 # the scan is enqueued on the stream every later fault
                 # write into these frames uses, so unpinning here is safe
@@ -950,13 +948,11 @@ def paged_search(pindex: PagedIndex, queries, *, k: int, kind: str = "ann",
         k_scan = 0
         s_m = torch.zeros((b, 0), dtype=torch.float32, device=dev)
         i_m = torch.zeros((b, 0), dtype=torch.int32, device=dev)
-    t_merge = time.perf_counter() if tr is not None else 0.0
-    s_f, i_f = _merge_epilogue(pindex.delta, cfg.metric, q, s_m, i_m, k,
-                               k_scan, attr_filter, qmask=qmask)
-    if tr is not None:
-        _sync(dev)
-        tr.record(obs_trace.STAGE_MERGE, (time.perf_counter() - t_merge) * 1e3,
-                  k=int(k), k_scan=int(k_scan), fused=0)
+    with obs_trace.stage(obs_trace.STAGE_MERGE) as st:
+        s_f, i_f = _merge_epilogue(pindex.delta, cfg.metric, q, s_m, i_m, k,
+                                   k_scan, attr_filter, qmask=qmask)
+        if st:
+            st.note(k=int(k), k_scan=int(k_scan), fused=0)
     if b != Q:
         s_f, i_f = s_f[:Q], i_f[:Q]
     return ResultSet(ids=i_f, scores=s_f, spec=spec)

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs import trace as obs_trace
 from . import kmeans, quantize
 from .types import (DeltaStore, INVALID_ID, IVFConfig, IVFIndex, QuantStats,
                     normalize_if_cosine, resolve_device)
@@ -106,7 +107,9 @@ def build_index(X: np.ndarray, ids: Optional[np.ndarray] = None,
 
     With cfg.quantize == "int8" the build also trains the scalar quantizer
     (unless stats are passed) and encodes every row into the code tier.
-    `device` None means the card (types.resolve_device)."""
+    `device` None means the card (types.resolve_device). Its stages
+    (quantize, kmeans_fit, kmeans_assign, pack, upload) record into the
+    thread's active trace (MicroNN.build() activates one)."""
     cfg = cfg or IVFConfig(dim=X.shape[1])
     dev = resolve_device(device)
     Xd = normalize_if_cosine(
@@ -116,10 +119,12 @@ def build_index(X: np.ndarray, ids: Optional[np.ndarray] = None,
         else np.asarray(ids).astype(np.int32)
     codes = None
     if cfg.quantize == "int8":
-        if qstats is None:
-            qstats = quantize.train(Xd)
-        qstats = QuantStats(lo=qstats.lo.to(dev), scale=qstats.scale.to(dev))
-        codes = quantize.encode(qstats, Xd).cpu().numpy()
+        with obs_trace.stage("quantize"):
+            if qstats is None:
+                qstats = quantize.train(Xd)
+            qstats = QuantStats(lo=qstats.lo.to(dev),
+                                scale=qstats.scale.to(dev))
+            codes = quantize.encode(qstats, Xd).cpu().numpy()
     else:
         qstats = None
     Xn = Xd.cpu().numpy()
@@ -127,12 +132,14 @@ def build_index(X: np.ndarray, ids: Optional[np.ndarray] = None,
     centroids, csizes, assign = kmeans.fit_in_memory(Xn, cfg, k=k,
                                                      device=dev)
     k = centroids.shape[0]
-    packed = pack_partitions(Xn, ids, attrs, assign, k, pad_to=cfg.pad_to,
-                             codes=codes)
+    with obs_trace.stage("pack"):
+        packed = pack_partitions(Xn, ids, attrs, assign, k,
+                                 pad_to=cfg.pad_to, codes=codes)
     counts = packed[4]
     base = float(np.float32(counts.mean())) if n else 0.0
-    return index_from_packed(packed, centroids, csizes, cfg, qstats, dev,
-                             base)
+    with obs_trace.stage("upload"):
+        return index_from_packed(packed, centroids, csizes, cfg, qstats,
+                                 dev, base)
 
 
 def grow_layout(index: IVFIndex, new_p_max: int) -> IVFIndex:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..obs import trace as obs_trace
 from .types import (IVFConfig, f32_matmul, normalize_if_cosine,
                     pairwise_scores, resolve_device)
 
@@ -135,14 +136,18 @@ class MiniBatchKMeans:
 
 def fit_in_memory(X: np.ndarray, cfg: IVFConfig, k: Optional[int] = None,
                   device=None):
-    """Fit + assign over an in-memory array -> (centroids, counts, assign)."""
+    """Fit + assign over an in-memory array -> (centroids, counts, assign),
+    as the stages kmeans_fit and kmeans_assign of the thread's active
+    trace."""
     km = MiniBatchKMeans(cfg, k=k, device=device)
 
     def sample(size: int, rng: np.random.Generator) -> np.ndarray:
         idx = rng.integers(0, X.shape[0], size=size)
         return X[idx]
 
-    km.fit(sample, X.shape[0])
+    with obs_trace.stage("kmeans_fit"):
+        km.fit(sample, X.shape[0])
     bs = max(cfg.minibatch_size, 4096)
-    assign = km.assign(X[i:i + bs] for i in range(0, X.shape[0], bs))
+    with obs_trace.stage("kmeans_assign"):
+        assign = km.assign(X[i:i + bs] for i in range(0, X.shape[0], bs))
     return km.centroids, km.counts, assign

@@ -430,7 +430,7 @@ class FrontDoor:
                               batch_rows=sum(x.n for x in reqs))
                 tr.adopt(shared)
                 tr.finish()
-                tr.result = rs
+                tr.refer(rs)
                 rs.trace = tr
                 if ring is not None:
                     ring.append(tr)

@@ -238,19 +238,49 @@ class MicroNN:
         """Initial clustering from the durable tier. With quantize="int8"
         the build trains the quantizer and persists codes + stats durably
         before the clustering swap (the crash ordering of the reference).
-        Paged mode streams the build from SQLite (_build_paged)."""
+        Paged mode streams the build from SQLite (_build_paged).
+
+        The resident build runs under its own trace: each of its stages
+        (obs.trace.BUILD_STAGES) is observed in the engine's
+        `stage_s{action="build", stage=...}` histogram and the build
+        enters the trace ring as one MaintEvent of kind "build". No stage
+        waits for the device: where a stage's device work is not waited
+        for within it, the next stage that waits holds it."""
         if self.paged:
             self._build_paged()
             return
-        ids, _, vecs = self.store.all_rows()
-        attrs = self.store.attributes_for(ids)
-        self.index = ivf.build_index(vecs, ids.astype(np.int32), attrs,
-                                     cfg=self.config, device=self.device)
-        self._persist_codes()
-        assign = self._current_assignment()
-        self.store.set_partitions(ids, assign[ids], *self._centroid_state())
-        self._persist_maintenance_state()
-        self._refresh_stats()
+        tr = obs_trace.QueryTrace(mode="build")
+        with obs_trace.activate(tr):
+            with obs_trace.stage("load"):
+                ids, _, vecs = self.store.all_rows()
+                attrs = self.store.attributes_for(ids)
+            self.index = ivf.build_index(vecs, ids.astype(np.int32), attrs,
+                                         cfg=self.config, device=self.device)
+            if self.index.codes is not None:
+                with obs_trace.stage("codes"):
+                    self._persist_codes()
+            with obs_trace.stage("partitions"):
+                assign = self._current_assignment()
+                self.store.set_partitions(ids, assign[ids],
+                                          *self._centroid_state())
+                self._persist_maintenance_state()
+            with obs_trace.stage("stats"):
+                self._refresh_stats()
+        self._observe_build(tr.finish(), rows=len(ids))
+
+    def _observe_build(self, tr: obs_trace.QueryTrace, rows: int):
+        """A finished build trace into the `stage_s{action="build"}`
+        histograms and the ring's "build" MaintEvent (nothing when tracing
+        is disabled)."""
+        if not tr.spans:
+            return
+        stages = {name: s.dur_ms for name, s in tr.spans.items()}
+        for name, ms in stages.items():
+            self.metrics.histogram("stage_s", action="build",
+                                   stage=name).observe(ms / 1e3)
+        self.traces.append(obs_trace.MaintEvent(
+            kind="build", action="build", rows=int(rows),
+            dur_ms=tr.total_ms, stages=stages))
 
     @_locked
     def recover(self):
@@ -734,7 +764,7 @@ class MicroNN:
         with obs_trace.activate(tr):
             res = self._query_inner(queries, spec)
         tr.finish()
-        tr.result = res
+        tr.refer(res)
         res.trace = tr
         self.traces.append(tr)
         return res
@@ -744,7 +774,10 @@ class MicroNN:
         """Execute the query traced and return its QueryTrace (the result
         rides on `trace.result`): the per-stage wall time and work counters
         of this spec on this engine."""
-        return self.query(queries, spec, trace=True).trace
+        res = self.query(queries, spec, trace=True)
+        if res.trace is not None:
+            res.trace.result = res
+        return res.trace
 
     def _query_inner(self, queries, spec: Optional[QuerySpec]) -> ResultSet:
         idx, optimizer = self.index, self.optimizer
@@ -781,18 +814,16 @@ class MicroNN:
 
     def _resolve_spec_traced(self, idx, optimizer, spec: QuerySpec,
                              n_queries: int) -> QuerySpec:
-        """_resolve_spec with the trace's `plan` span (the hybrid decision
-        and the resolved shape) when a trace is active."""
-        tr = obs_trace.current()
-        if tr is None:
-            return self._resolve_spec(idx, optimizer, spec)
-        t0 = time.perf_counter()
-        spec = self._resolve_spec(idx, optimizer, spec)
-        tr.record(obs_trace.STAGE_PLAN, (time.perf_counter() - t0) * 1e3,
-                  kind=spec.kind, k=int(spec.k), n_probe=int(spec.n_probe),
-                  hybrid=spec.hybrid, predicate=spec.predicate is not None)
-        tr.spec = spec
-        tr.n_queries += n_queries
+        """_resolve_spec as the `plan` stage (with a trace active: the
+        hybrid decision and the resolved shape)."""
+        with obs_trace.stage(obs_trace.STAGE_PLAN) as st:
+            spec = self._resolve_spec(idx, optimizer, spec)
+            if st:
+                st.note(kind=spec.kind, k=int(spec.k),
+                        n_probe=int(spec.n_probe), hybrid=spec.hybrid,
+                        predicate=spec.predicate is not None)
+                st.trace.spec = spec
+                st.trace.n_queries += n_queries
         return spec
 
     def _resolve_spec(self, idx, optimizer: Optional[HybridOptimizer],

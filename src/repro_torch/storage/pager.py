@@ -31,7 +31,6 @@ whose counters equal the registry deltas of the call.
 """
 from __future__ import annotations
 
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -256,22 +255,18 @@ class PartitionCache:
         """Seat every listed partition; returns the frame per pid (input
         order), each PINNED -- the caller unpins after its scan. `admit=
         False` marks a one-off stream (paged exact): misses land in the
-        scan ring and hits leave reference bits alone. With a trace active
-        the fault records the `pager_fault` span (its counters read under
-        the pool lock, so they are this fault's alone) and waits for the frame
-        writes, so the span times them."""
-        tr = obs_trace.current()
-        if tr is None:
-            return self._pool.fault(self._tid, pids, admit)
-        t0 = time.perf_counter()
-        with self._pool._lock:
-            frames = self._pool.fault(self._tid, pids, admit)
-            h, m, st, nb = self._last_fault
-        if self._pool.device.type == "cuda":    # the frame writes are async
-            torch.cuda.synchronize(self._pool.device)
-        tr.record(obs_trace.STAGE_FAULT, (time.perf_counter() - t0) * 1e3,
-                  hits=h, misses=m, staged=st, bytes_read=nb,
-                  admitted=bool(admit))
+        scan ring and hits leave reference bits alone. The fault is the
+        `pager_fault` stage; with a trace active its counters are read
+        under the pool lock, so they are this fault's alone. The frame
+        writes it enqueues are not waited for."""
+        with obs_trace.stage(obs_trace.STAGE_FAULT) as span:
+            if not span:
+                return self._pool.fault(self._tid, pids, admit)
+            with self._pool._lock:
+                frames = self._pool.fault(self._tid, pids, admit)
+                h, m, st, nb = self._last_fault
+            span.note(hits=h, misses=m, staged=st, bytes_read=nb,
+                      admitted=bool(admit))
         return frames
 
     def unpin(self, frames: np.ndarray):

@@ -13,15 +13,23 @@ stats) against the JAX package's (repro.obs), mirroring tests/test_obs.py.
   * exact when on: the fault span equals the pager's counter deltas, the
     scan span's `compiled` / `launches` equal the kernel-load and launch
     deltas, and one query is one run_count() step;
+  * where the work happens: a traced query waits for the device only at
+    its trace's finish and probes once; its stages are micronn.* ranges
+    under torch.profiler, traced or not; build() records its stages in
+    its stage_s histograms and one "build" event;
   * the scheduler's counters and event log, the ring and slow log, the
     front door's traced submits.
 
 All on the CPU (the kernels' plain versions); the card's side is in
 chip_smoke.py.
 """
+import gc
+import json
 import re
 import shutil
 import threading
+import time
+import weakref
 
 import numpy as np
 import pytest
@@ -404,6 +412,184 @@ def test_trace_launch_and_load_counters_reconcile(tmp_path):
     assert "trace_count" not in st and "compile_cache_size" not in st
     snap = obs_metrics.default_registry().snapshot()["gauges"]
     assert snap['run_count{component="executor"}'] == executor.run_count()
+    eng.close()
+
+
+# -- stages where the work happens: no waits, one probe, profiler ranges -----
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["resident", "paged"])
+def test_traced_query_waits_only_at_finish_and_probes_once(tmp_path,
+                                                           monkeypatch,
+                                                           paged):
+    """A traced int8 query calls no device synchronisation before its
+    trace's finish, and computes its centroid scores as often as the
+    untraced query does (the probe span reads the real probe)."""
+    eng, X = _mk(tmp_path, f"nosync-{paged}", paged=paged, quant=True)
+    spec = Q.knn(k=5, n_probe=4)
+    q = X[:16] + 0.01          # above SMALL_Q_GATHER_MAX: the union plan
+    eng.query(q, spec)
+    calls = [0]
+    real_scores = executor._centroid_scores
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real_scores(*a, **kw)
+
+    monkeypatch.setattr(executor, "_centroid_scores", counted)
+    eng.query(q, spec)
+    untraced, calls[0] = calls[0], 0
+    events = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **kw: events.append("sync"))
+    monkeypatch.setattr(executor, "_sync",
+                        lambda *a, **kw: events.append("sync"), raising=False)
+    real_finish = obs_trace.QueryTrace.finish
+
+    def finish(self):
+        events.append("finish")
+        return real_finish(self)
+
+    monkeypatch.setattr(obs_trace.QueryTrace, "finish", finish)
+    tr = eng.explain(q, spec)
+    assert untraced >= 1 and calls[0] == untraced
+    assert events[0] == "finish", events
+    assert tr.span_names[-2:] == ("rerank", "merge")
+    for name in ("rerank", "merge"):
+        assert tr.get(name).dur_ms > 0, name
+    assert sum(s.dur_ms for s in tr.spans.values()) <= tr.total_ms
+    for s in tr.spans.values():
+        assert not any(isinstance(v, torch.Tensor)
+                       for v in s.counters.values()), s
+    if not paged:
+        # the probe union's size, read at finish, is the distinct probes'
+        parts = executor.find_nearest_centroids(
+            eng.index, torch.as_tensor(q), 4)
+        n = int(torch.unique(parts).numel())
+        assert tr.counter("probe", "partitions") == n
+        assert tr.counter("scan", "rows") == n * eng.index.p_max
+        assert tr.counter("rerank", "candidates") == \
+            16 * min(5 * 4, n * eng.index.p_max)
+    eng.close()
+
+
+def test_ring_keeps_no_traced_result_alive(tmp_path):
+    """A traced query's trace refers to its result without holding it, so
+    dropping the result frees it (and its device tensors) at once, with
+    no garbage collection; explain()'s trace holds its result."""
+    eng, X = _mk(tmp_path, "weak")
+    spec = Q.knn(k=5, n_probe=4)
+    gc.disable()
+    try:
+        rs = eng.query(X[:2], spec, trace=True)
+        tr = rs.trace
+        assert tr.result is rs and tr in eng.traces.traces()
+        gone = weakref.ref(rs)
+        del rs
+        assert gone() is None and tr.result is None
+    finally:
+        gc.enable()
+    tr = eng.explain(X[:2], spec)
+    assert tr.result is not None and tr.result.trace is tr
+    eng.close()
+
+
+def test_stage_hook_is_the_shared_noop_when_nothing_records():
+    assert obs_trace.current() is None
+    assert not torch.autograd._profiler_enabled()
+    assert obs_trace.stage(obs_trace.STAGE_SCAN) is obs_trace.NO_STAGE
+    assert not obs_trace.NO_STAGE
+    tr = obs_trace.QueryTrace()
+    with obs_trace.activate(tr):
+        with obs_trace.stage(obs_trace.STAGE_SCAN) as st:
+            assert st and st is not obs_trace.NO_STAGE
+            st.note(rows=torch.tensor(3), chunks=1)
+        with obs_trace.stage(obs_trace.STAGE_SCAN) as st:
+            st.note(rows=torch.tensor(4), chunks=1)
+        obs_trace.set_enabled(False)
+        try:
+            assert obs_trace.stage("x") is obs_trace.NO_STAGE
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]):
+                assert obs_trace.stage("x") is obs_trace.NO_STAGE
+        finally:
+            obs_trace.set_enabled(True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        st = obs_trace.stage("x")
+        assert st is not obs_trace.NO_STAGE and not st
+    tr.finish()
+    scan = tr.get("scan")
+    assert scan.calls == 2 and scan.counters == {"rows": 7, "chunks": 2}
+    assert tr.span_names == ("scan",)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_untraced_query_stages_are_profiler_ranges(tmp_path, quant):
+    """Under torch.profiler an untraced query's stages are the ranges
+    micronn.plan, .probe, .scan, (.rerank,) .merge: disjoint, in order."""
+    eng, X = _mk(tmp_path, f"prof-{quant}", quant=quant)
+    spec = Q.knn(k=5, n_probe=4)
+    q = X[:16] + 0.01
+    eng.query(q, spec)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        rs = eng.query(q, spec)
+    assert rs.trace is None
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                     e["name"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e["name"].startswith(obs_trace.RANGE_PREFIX))
+    want = ["plan", "probe", "scan"] + (["rerank"] if quant else []) \
+        + ["merge"]
+    assert [n for _, _, n in ranges] == ["micronn." + w for w in want]
+    for (_, end, _), (start, _, _) in zip(ranges, ranges[1:]):
+        assert end <= start
+    assert len(eng.traces) == 1    # the build's event alone
+    eng.close()
+
+
+# -- build(): its stages, from inside -----------------------------------------
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_build_records_its_stages(tmp_path, quant):
+    cfg = IVFConfig(dim=DIM, target_partition_size=50, kmeans_iters=8,
+                    delta_capacity=64,
+                    **({"quantize": "int8", "rerank_factor": 4}
+                       if quant else {}))
+    eng = MicroNN(dim=DIM, path=str(tmp_path / "b.db"), config=cfg,
+                  device="cpu")
+    eng.upsert(np.arange(400), clustered(400, 1))
+    t0 = time.perf_counter()
+    eng.build()
+    wall = time.perf_counter() - t0
+    want = [s for s in obs_trace.BUILD_STAGES
+            if quant or s not in ("quantize", "codes")]
+    inst = dict(eng.metrics.labels)["inst"]
+    hist = {}
+    for key, h in obs_metrics.default_registry().snapshot()[
+            "histograms"].items():
+        labels = dict(re.findall(r'(\w+)="([^"]*)"', key))
+        if key.startswith("stage_s{") and labels.get("inst") == inst:
+            assert labels["action"] == "build"
+            assert labels["component"] == "engine"
+            hist[labels["stage"]] = h
+    assert sorted(hist) == sorted(want)
+    assert all(h["count"] == 1 for h in hist.values())
+    assert sum(h["sum"] for h in hist.values()) <= wall
+    builds = [e for e in eng.traces.events() if e.kind == "build"]
+    assert len(builds) == 1
+    ev = builds[0]
+    assert list(ev.stages) == want and ev.rows == 400
+    for name in want:
+        assert ev.stages[name] / 1e3 == pytest.approx(hist[name]["sum"])
+    assert ev.to_dict()["stages"] == ev.stages
+    assert eng.traces.traces() == []
     eng.close()
 
 

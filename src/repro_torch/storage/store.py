@@ -32,6 +32,12 @@ import numpy as np
 # SQLite bound-parameter ceiling (999 before 3.32); chunk IN (...) queries.
 _PARAM_CHUNK = 500
 
+# The asset-id index over the clustered vector table. _create makes it and
+# set_partitions rebuilds it with this one statement, so sqlite_master holds
+# the same text either way, byte for byte repro.storage.store's.
+_CREATE_VECTORS_BY_ASSET = ("CREATE UNIQUE INDEX IF NOT EXISTS"
+                            " vectors_by_asset ON vectors(asset_id)")
+
 
 @dataclasses.dataclass
 class PartitionBlocks:
@@ -136,9 +142,7 @@ class VectorStore:
                 " asset_id INTEGER NOT NULL,"
                 " vec BLOB NOT NULL,"
                 " PRIMARY KEY (partition_id, asset_id)) WITHOUT ROWID")
-            self.db.execute(
-                "CREATE UNIQUE INDEX IF NOT EXISTS vectors_by_asset"
-                " ON vectors(asset_id)")
+            self.db.execute(_CREATE_VECTORS_BY_ASSET)
             self.db.execute(
                 "CREATE TABLE IF NOT EXISTS centroids ("
                 " generation INTEGER NOT NULL,"
@@ -248,15 +252,20 @@ class VectorStore:
                                 scale: np.ndarray):
         """set_code_tier over a stream of (asset_ids, codes) chunks, all
         inside ONE transaction -- the paged build encodes batch-by-batch
-        without losing the codes-consistent-with-stats crash guarantee."""
+        without losing the codes-consistent-with-stats crash guarantee.
+        Each chunk is written in asset-id order, the `codes` B-tree's key
+        order: a whole-tier write fills it front to back instead of
+        landing every row on a random page. The sort is stable, so a
+        repeated id still keeps its last code."""
         with self.transaction():
             for asset_ids, codes in chunks:
-                codes = np.ascontiguousarray(codes, np.int8)
+                ids = np.asarray(asset_ids, np.int64)
+                order = np.argsort(ids, kind="stable")
+                codes = np.ascontiguousarray(codes, np.int8)[order]
                 self.db.executemany(
                     "INSERT OR REPLACE INTO codes(asset_id, code)"
                     " VALUES (?, ?)",
-                    [(int(a), c.tobytes())
-                     for a, c in zip(asset_ids, codes)])
+                    zip(ids[order].tolist(), (c.tobytes() for c in codes)))
             self._set_meta("qstats", json.dumps(
                 {"lo": [float(x) for x in lo],
                  "scale": [float(x) for x in scale]}))
@@ -294,18 +303,29 @@ class VectorStore:
                        centroids: np.ndarray, csizes: np.ndarray):
         """Atomically install a new clustering generation (paper: the
         partition IDs in the vector table are updated after (re)clustering).
-        The clustered PK physically re-orders rows by partition."""
+        The clustered PK physically re-orders rows by partition.
+
+        The rows go back in the table's key order (partition_id, asset_id),
+        with `vectors_by_asset` dropped before and rebuilt once after, all
+        inside the one transaction: both B-trees fill front to back rather
+        than taking each row on a random page. An exception anywhere (an
+        asset id absent from the store, say) rolls back to the previous
+        generation with its rows and its index."""
         gen = self.generation + 1
+        asset_ids = np.asarray(asset_ids, np.int64)
+        partition_ids = np.asarray(partition_ids, np.int64)
+        order = np.lexsort((asset_ids, partition_ids))
         with self.transaction():
-            rows = self.db.execute(
-                "SELECT asset_id, vec FROM vectors").fetchall()
-            by_id = {a: v for a, v in rows}
+            by_id = dict(self.db.execute("SELECT asset_id, vec FROM vectors"))
+            self.db.execute("DROP INDEX vectors_by_asset")
             self.db.execute("DELETE FROM vectors")
             self.db.executemany(
                 "INSERT INTO vectors(partition_id, asset_id, vec)"
                 " VALUES (?, ?, ?)",
-                [(int(p), int(a), by_id[int(a)])
-                 for a, p in zip(asset_ids, partition_ids)])
+                ((p, a, by_id[a]) for p, a in zip(
+                    partition_ids[order].tolist(),
+                    asset_ids[order].tolist())))
+            self.db.execute(_CREATE_VECTORS_BY_ASSET)
             self.db.executemany(
                 "INSERT INTO centroids(generation, partition_id, vec, csize)"
                 " VALUES (?, ?, ?, ?)",

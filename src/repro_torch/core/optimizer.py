@@ -17,12 +17,18 @@ resolves `hybrid="auto"` into a concrete "pre" spec (with a sized gather
 cap) or "post" spec. The selectivity estimates are host float64 numpy
 (core/hybrid.AttributeStats), so the decisions and caps equal the JAX
 package's on the same index.
+
+`plan_spec` counts its decisions in the cumulative `plans{plan="pre"}` and
+`plans{plan="post"}` counters of the optimizer's metrics scope (the engine
+passes its `component=planner` scope, so a rebuilt optimizer keeps the
+series).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+from ..obs import metrics as obs_metrics
 from . import executor
 from .hybrid import AttributeStats, Node
 from .query import Q, QuerySpec, ResultSet
@@ -43,11 +49,16 @@ class HybridOptimizer:
 
     def __init__(self, stats: AttributeStats, *,
                  cap_safety: float = 2.0, cap_round: int = 256,
-                 max_prefilter_cap: Optional[int] = None):
+                 max_prefilter_cap: Optional[int] = None, metrics=None):
         self.stats = stats
         self.cap_safety = cap_safety
         self.cap_round = cap_round
         self.max_prefilter_cap = max_prefilter_cap
+        if metrics is None:
+            metrics = obs_metrics.default_registry().scope(
+                component="planner", inst=obs_metrics.next_instance())
+        self._c_plans = {p: metrics.counter("plans", plan=p)
+                         for p in ("pre", "post")}
 
     def choose(self, index: IVFIndex, predicate: Node,
                n_probe: int) -> PlanDecision:
@@ -84,6 +95,7 @@ class HybridOptimizer:
             out = spec.prefilter(cap)
         else:
             out = spec.postfilter()
+        self._c_plans[plan].inc()
         return out, dataclasses.replace(decision, plan=plan)
 
     def execute(self, index: IVFIndex, queries, predicate: Node, k: int,

@@ -111,10 +111,13 @@ def fold_queries(stats: QuantStats, q: torch.Tensor
     return q_i8, alpha, beta
 
 
-def row_norms(stats: QuantStats, codes: torch.Tensor) -> torch.Tensor:
+def row_norms(stats: QuantStats, codes: torch.Tensor,
+              chunk_rows: int = _NORM_CHUNK_ROWS) -> torch.Tensor:
     """[..., p, d] int8 codes -> [..., p] f32 ||decode(c)||^2, the l2 scan's
     per-row constant (IVFIndex.code_norms, and the paged int8 pool's norms
-    frames).
+    frames). Rows are decoded `chunk_rows` at a time, which bounds the
+    float32 scratch (the decode, its squares, the sum's first half: 10 *
+    d bytes a row).
 
     The squares are summed by types.pairwise_sum, so a row's norm has the
     same bits whatever batch it is computed in and on either device: the
@@ -125,9 +128,9 @@ def row_norms(stats: QuantStats, codes: torch.Tensor) -> torch.Tensor:
     flat = codes.reshape(-1, d)
     out = torch.empty((flat.shape[0],), dtype=torch.float32,
                       device=codes.device)
-    for s in range(0, flat.shape[0], _NORM_CHUNK_ROWS):
-        v = decode(stats, flat[s:s + _NORM_CHUNK_ROWS])
-        out[s:s + _NORM_CHUNK_ROWS] = pairwise_sum(v * v)
+    for s in range(0, flat.shape[0], chunk_rows):
+        v = decode(stats, flat[s:s + chunk_rows])
+        out[s:s + chunk_rows] = pairwise_sum(v * v)
     return out.reshape(lead)
 
 

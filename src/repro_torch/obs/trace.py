@@ -22,7 +22,10 @@ named Span:
 
 `MicroNN.build()` records its own stages the same way (BUILD_STAGES) and
 keeps them in the engine's `stage_s{action="build"}` histograms and one
-MaintEvent of kind "build".
+MaintEvent of kind "build". A write session, and an upsert, record the
+same way under a write trace: the session's durable transaction
+("commit") and each inline delta flush ("flush") into the engine's
+`stage_s{action="write"}` histograms.
 
 A stage never waits for the device. Kernels run asynchronously on the
 card, so a span is the host time of its stage: a stage's device work

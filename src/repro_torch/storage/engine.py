@@ -45,11 +45,14 @@ metrics registry (`self.metrics`; the pager, scheduler and front door
 register under it) and a TraceRing (`self.traces`: the last traced
 queries, the maintenance event log and the slow-query log).
 `query(..., trace=True)` and `explain()` record a per-stage QueryTrace;
-`stats()` is a derived view of the registry. The flight recorder
-(obs/recorder.py) captures `query()` calls while one is installed.
+the write path keeps `stage_s{action="write"}` histograms of each session
+commit and each inline delta flush; `stats()` is a derived view of the
+registry. The flight recorder (obs/recorder.py) captures `query()` calls
+while one is installed.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -194,7 +197,18 @@ class MicroNN:
         self._frame_pool = frame_pool
         self.tenant = None if tenant is None else str(tenant)
         self.lock = threading.RLock()
-        self.store = VectorStore(path, dim=dim, n_attr=n_attr)
+        # this engine's labeled view of the process metrics registry; a
+        # fleet tenant's scope is labeled by name, so a reopened tenant
+        # resumes its series
+        if self.tenant is not None:
+            self.metrics = obs_metrics.default_registry().scope(
+                component="engine", tenant=self.tenant)
+        else:
+            self.metrics = obs_metrics.default_registry().scope(
+                component="engine", inst=str(obs_metrics.next_instance()))
+        self.store = VectorStore(path, dim=dim, n_attr=n_attr,
+                                 metrics=self.metrics.scope(
+                                     component="store"))
         cfg = config or IVFConfig(dim=dim)
         if quantize is not None:
             cfg = dataclasses.replace(cfg, quantize=quantize)
@@ -205,15 +219,6 @@ class MicroNN:
         self.index = None   # IVFIndex (resident) or PagedIndex (paged)
         self.optimizer: Optional[HybridOptimizer] = None
         self.maintenance_log = []
-        # this engine's labeled view of the process metrics registry; a
-        # fleet tenant's scope is labeled by name, so a reopened tenant
-        # resumes its series
-        if self.tenant is not None:
-            self.metrics = obs_metrics.default_registry().scope(
-                component="engine", tenant=self.tenant)
-        else:
-            self.metrics = obs_metrics.default_registry().scope(
-                component="engine", inst=str(obs_metrics.next_instance()))
         self.traces = obs_trace.TraceRing(capacity=trace_ring_capacity,
                                           slow_ms=slow_query_ms)
         self._c_queries = self.metrics.counter("queries")
@@ -354,8 +359,9 @@ class MicroNN:
         if self.index is None:
             return
         self._drop_from_partitions(old_main)
-        self._delta_append(np.asarray(ids), np.asarray(vecs, np.float32),
-                           np.asarray(attrs, np.float32))
+        with self._write_trace():
+            self._delta_append(np.asarray(ids), np.asarray(vecs, np.float32),
+                               np.asarray(attrs, np.float32))
 
     @_locked
     def delete(self, ids: np.ndarray):
@@ -430,24 +436,27 @@ class MicroNN:
         up_vecs = vecs_all[rows_all[last[is_up]]]
         up_attrs = attrs_all[rows_all[last[is_up]]]
         old_main = self._old_partitions(np.concatenate([up_ids, del_ids]))
-        with self.store.transaction():    # ONE durable transaction
-            if len(up_ids):
-                self.store.upsert(up_ids, up_vecs, up_attrs, partition_id=-1)
-            if len(del_ids):
-                self.store.delete(del_ids)
-        if self.index is None:
-            return
-        if self.paged:
-            # one deferred invalidation pass for the whole session
-            self._drop_from_partitions(old_main)
-            if len(del_ids):
-                self.index.delta = delta_ops.delta_only_delete(
-                    self.index.delta, torch.as_tensor(del_ids,
-                                                      dtype=torch.int32))
-        elif len(del_ids):
-            self.index = delta_ops.delete(
-                self.index, torch.as_tensor(del_ids, dtype=torch.int32))
-        self._delta_append(up_ids, up_vecs, up_attrs)
+        with self._write_trace():
+            with obs_trace.stage("commit"), self.store.transaction():
+                # ONE durable transaction
+                if len(up_ids):
+                    self.store.upsert(up_ids, up_vecs, up_attrs,
+                                      partition_id=-1)
+                if len(del_ids):
+                    self.store.delete(del_ids)
+            if self.index is None:
+                return
+            if self.paged:
+                # one deferred invalidation pass for the whole session
+                self._drop_from_partitions(old_main)
+                if len(del_ids):
+                    self.index.delta = delta_ops.delta_only_delete(
+                        self.index.delta, torch.as_tensor(del_ids,
+                                                          dtype=torch.int32))
+            elif len(del_ids):
+                self.index = delta_ops.delete(
+                    self.index, torch.as_tensor(del_ids, dtype=torch.int32))
+            self._delta_append(up_ids, up_vecs, up_attrs)
 
     def _delta_append(self, ids: np.ndarray, vecs: np.ndarray,
                       attrs: np.ndarray):
@@ -457,7 +466,8 @@ class MicroNN:
         for s in range(0, len(ids), cap):
             e = min(s + cap, len(ids))
             if delta_ops.delta_free_slots(self.index) < e - s:
-                self.maintain(force="flush")
+                with obs_trace.stage("flush"):
+                    self.maintain(force="flush")
             v = torch.as_tensor(np.ascontiguousarray(vecs[s:e], np.float32))
             i = torch.as_tensor(np.asarray(ids[s:e]).astype(np.int32))
             a = torch.as_tensor(np.ascontiguousarray(attrs[s:e], np.float32))
@@ -467,6 +477,25 @@ class MicroNN:
                     self.index.qstats)
             else:
                 self.index = delta_ops.upsert(self.index, v, i, a)
+
+    @contextlib.contextmanager
+    def _write_trace(self):
+        """The write trace of a session or an upsert, as build() has its
+        own: on leaving the block its "commit" span (a session's durable
+        transaction) and "flush" span (each inline delta flush a full delta
+        forced) go to the `stage_s{action="write"}` histograms, each of a
+        span's calls at the span's mean (nothing when tracing is
+        disabled)."""
+        tr = obs_trace.QueryTrace(mode="write")
+        with obs_trace.activate(tr):
+            yield
+        for name in ("commit", "flush"):
+            span = tr.spans.get(name)
+            if span is None:
+                continue
+            h = self.metrics.histogram("stage_s", action="write", stage=name)
+            for _ in range(span.calls):
+                h.observe(span.dur_ms / span.calls / 1e3)
 
     # -- maintenance ----------------------------------------------------------
     @_locked
@@ -1108,7 +1137,8 @@ class MicroNN:
         rows (one device-to-host copy of those rows per refresh)."""
         idx = self.index
         self.optimizer = HybridOptimizer(
-            AttributeStats(idx.attrs[idx.valid].cpu().numpy()))
+            AttributeStats(idx.attrs[idx.valid].cpu().numpy()),
+            metrics=self.metrics.scope(component="planner"))
 
     def _persist_maintenance_state(self):
         """Mirror drift + the rebuild baseline into the store's meta table

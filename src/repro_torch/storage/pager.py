@@ -241,8 +241,13 @@ class PartitionCache:
 
     def frame_norms(self, codes: torch.Tensor) -> torch.Tensor:
         """[m, p_max, d] int8 frames on the device -> [m, p_max] norms, the
-        resident tier's code_norms for the same rows, bit for bit."""
-        return quantize.row_norms(self.qstats, codes)
+        resident tier's code_norms for the same rows, bit for bit. A fault
+        may fill the whole pool at once, so the rows are decoded in chunks
+        of a quarter of the budget's bytes as float32: the norms' scratch
+        stays under the budget (decoding every frame at once took 8 times
+        the pool's int8 bytes)."""
+        rows = max(1, self.budget_bytes // (16 * codes.shape[-1]))
+        return quantize.row_norms(self.qstats, codes, chunk_rows=rows)
 
     def stage(self, pids: Sequence[int]):
         """Read ahead: fetch and pack the listed partitions' host blocks so

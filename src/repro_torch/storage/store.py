@@ -18,6 +18,12 @@ database file written by either package opens in the other. This layer
 runs on the host: the durable home of the index, the source of device
 uploads, and in paged mode the scan tier itself (batched partition scans
 feed the frame pool, per-asset gathers feed the rerank).
+
+The query path's reads -- `scan_partitions` (the pager's faults and
+read-ahead) and `vectors_for` (the paged rerank's gather) -- bump the
+cumulative `rows_read` and `bytes_read` counters of the store's
+`component=store` metrics scope once per call: the rows the call returned
+and their payload bytes (vector and code blobs, 4 bytes an attribute).
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ import sqlite3
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..obs import metrics as obs_metrics
 
 # SQLite bound-parameter ceiling (999 before 3.32); chunk IN (...) queries.
 _PARAM_CHUNK = 500
@@ -58,10 +66,18 @@ class PartitionBlocks:
 
 class VectorStore:
     def __init__(self, path: str = ":memory:", dim: int = 128,
-                 n_attr: int = 0):
+                 n_attr: int = 0, metrics=None):
+        """`metrics` is the scope the read counters register under (the
+        engine passes its `component=store` scope); a standalone store
+        gets a fresh instance label."""
         self.path = path
         self.dim = dim
         self.n_attr = n_attr
+        if metrics is None:
+            metrics = obs_metrics.default_registry().scope(
+                component="store", inst=obs_metrics.next_instance())
+        self._c_rows_read = metrics.counter("rows_read")
+        self._c_bytes_read = metrics.counter("bytes_read")
         # autocommit connection: transaction boundaries are owned by
         # transaction() below, which NESTS -- a write session wraps many
         # store calls in one outer BEGIN...COMMIT (paper §3.6's batched
@@ -453,6 +469,7 @@ class VectorStore:
         if with_attrs and self.n_attr:
             cols += ", " + ", ".join(f"a.a{i}" for i in range(self.n_attr))
             joins += " LEFT JOIN attributes a ON a.asset_id = v.asset_id"
+        n_read = n_bytes = 0
         for s in range(0, m, _PARAM_CHUNK):
             chunk = want[s:s + _PARAM_CHUNK]
             ph = ", ".join("?" * len(chunk))
@@ -463,6 +480,7 @@ class VectorStore:
             if not rows:
                 continue
             nr = len(rows)
+            n_read += nr
             pid_col = np.fromiter((r[0] for r in rows), np.int64, nr)
             # pid -> block row: slot of chunk[t] is s + t, recovered by a
             # searchsorted over the sorted chunk
@@ -487,6 +505,7 @@ class VectorStore:
                 vecs[j_col, i_col] = np.frombuffer(
                     b"".join(r[c] for r in rows),
                     np.float32).reshape(nr, self.dim)
+                n_bytes += nr * 4 * self.dim
                 c += 1
             if with_codes:
                 blobs = [r[c] for r in rows]
@@ -497,6 +516,7 @@ class VectorStore:
                         b"".join(blobs[t] for t in sel),
                         np.int8).reshape(len(sel), self.dim)
                     code_ok[j_col[sel], i_col[sel]] = True
+                n_bytes += len(sel) * self.dim
                 c += 1
             if with_attrs and self.n_attr:
                 arows = [r[c:c + self.n_attr] for r in rows]
@@ -505,6 +525,8 @@ class VectorStore:
                 if len(sel):
                     attrs[j_col[sel], i_col[sel]] = np.asarray(
                         [arows[t] for t in sel], np.float32)
+                n_bytes += len(sel) * 4 * self.n_attr
+        self._count_read(n_read, n_bytes)
         return PartitionBlocks(vecs=vecs, ids=ids, valid=valid, codes=codes,
                                code_ok=code_ok, attrs=attrs)
 
@@ -514,11 +536,20 @@ class VectorStore:
         one batched IN (...) query -- the paged rerank's disk gather."""
         out = np.zeros((len(asset_ids), self.dim), np.float32)
         found = np.zeros((len(asset_ids),), bool)
-        for (_, blob), j in self._gather_by_asset("vec", "vectors",
-                                                  asset_ids):
-            out[j] = np.frombuffer(blob, np.float32)
+        n_read, last = 0, None
+        for row, j in self._gather_by_asset("vec", "vectors", asset_ids):
+            out[j] = np.frombuffer(row[1], np.float32)
             found[j] = True
+            # a repeated id is yielded again with the same row, read once
+            if row is not last:
+                n_read, last = n_read + 1, row
+        self._count_read(n_read, n_read * 4 * self.dim)
         return out, found
+
+    def _count_read(self, rows: int, nbytes: int):
+        """One bump of the read counters for a whole call."""
+        self._c_rows_read.inc(rows)
+        self._c_bytes_read.inc(nbytes)
 
     def partitions_for(self, asset_ids: Sequence[int]) -> np.ndarray:
         """asset id -> current partition id (-2 where the asset is absent;

@@ -23,6 +23,7 @@ stats) against the JAX package's (repro.obs), mirroring tests/test_obs.py.
 All on the CPU (the kernels' plain versions); the card's side is in
 chip_smoke.py.
 """
+import contextlib
 import gc
 import json
 import re
@@ -30,6 +31,7 @@ import shutil
 import threading
 import time
 import weakref
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -591,6 +593,169 @@ def test_build_records_its_stages(tmp_path, quant):
     assert ev.to_dict()["stages"] == ev.stages
     assert eng.traces.traces() == []
     eng.close()
+
+
+# -- the store's reads, the write stages, the planner's plans ----------------
+
+
+def _counter(scope_labels, name, **labels):
+    want = dict(scope_labels, **labels)
+    for (n, labs), m in obs_metrics.default_registry()._metrics.items():
+        if n == name and dict(labs) == want:
+            return m.value
+    return None
+
+
+def test_store_read_counters_count_each_call(tmp_path):
+    """rows_read / bytes_read move once a call by the rows the call
+    returned and their payload bytes; a repeated or missing id reads no
+    row of its own."""
+    from repro_torch.storage.store import VectorStore
+    d, n = 8, 120
+    rng = np.random.default_rng(5)
+    st = VectorStore(str(tmp_path / "r.db"), dim=d, n_attr=2)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    st.upsert(np.arange(n), X, rng.random((n, 2)).astype(np.float32))
+    parts = rng.integers(0, 6, n)
+    st.set_partitions(np.arange(n), parts, np.zeros((6, d), np.float32),
+                      np.bincount(parts, minlength=6).astype(np.float32))
+    coded = np.arange(0, n, 2)
+    st.set_code_tier(coded, np.ones((len(coded), d), np.int8),
+                     np.zeros(d, np.float32), np.ones(d, np.float32))
+    rows, nbytes = st._c_rows_read, st._c_bytes_read
+    for kw in ({"with_vecs": True}, {"with_codes": True, "with_vecs": False,
+                                      "with_attrs": True}):
+        r0, b0 = rows.value, nbytes.value
+        blocks = st.scan_partitions([4, 1, 3], 64, **kw)
+        got = int(blocks.valid.sum())
+        want_b = got * 4 * d if kw["with_vecs"] else \
+            int(blocks.code_ok.sum()) * d + got * 4 * 2
+        assert rows.value - r0 == got > 0
+        assert nbytes.value - b0 == want_b
+    r0, b0 = rows.value, nbytes.value
+    _, found = st.vectors_for([7, 3, 7, n + 5, 9])
+    assert list(found) == [True, True, True, False, True]
+    assert rows.value - r0 == 3 and nbytes.value - b0 == 3 * 4 * d
+    st.close()
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["resident", "paged"])
+def test_write_stages_one_commit_a_session_one_flush_a_flush(
+        tmp_path, monkeypatch, paged):
+    eng, X = _mk(tmp_path, "w", paged=paged, quant=True)
+    flushes = []
+    real = MicroNN.maintain
+
+    def maintain(self, force=None, **kw):
+        if force == "flush":
+            flushes.append(1)
+        return real(self, force, **kw)
+
+    monkeypatch.setattr(MicroNN, "maintain", maintain)
+    rng = np.random.default_rng(9)
+    for i in range(6):
+        with eng.session() as s:
+            s.upsert(np.arange(1000 + 30 * i, 1030 + 30 * i),
+                     rng.normal(size=(30, DIM)).astype(np.float32))
+            s.delete(np.arange(5 * i, 5 * i + 3))
+    eng.upsert(np.arange(5000, 5040),
+               rng.normal(size=(40, DIM)).astype(np.float32))
+    hist = {}
+    for (name, labs), m in obs_metrics.default_registry()._metrics.items():
+        labs = dict(labs)
+        if name == "stage_s" and labs.get("inst") == \
+                dict(eng.metrics.labels)["inst"] and \
+                labs.get("action") == "write":
+            hist[labs["stage"]] = m
+    assert hist["commit"].count == 6          # sessions only
+    assert len(flushes) >= 2 and hist["flush"].count == len(flushes)
+    assert hist["commit"].sum > 0 and hist["flush"].sum > 0
+    eng.close()
+
+
+def test_plan_counter_matches_plan_spec(tmp_path, monkeypatch):
+    from repro_torch.core.optimizer import HybridOptimizer
+    cfg = IVFConfig(dim=DIM, target_partition_size=50, kmeans_iters=8)
+    eng = MicroNN(dim=DIM, n_attr=2, path=str(tmp_path / "p.db"),
+                  config=cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    X = clustered(2000, 3)
+    A = np.stack([rng.integers(0, 10, 2000), rng.random(2000)],
+                 1).astype(np.float32)
+    eng.upsert(np.arange(2000), X, A)
+    eng.build()
+    plans = []
+    real = HybridOptimizer.plan_spec
+
+    def plan_spec(self, index, spec):
+        out, dec = real(self, index, spec)
+        plans.append(dec.plan)
+        return out, dec
+
+    monkeypatch.setattr(HybridOptimizer, "plan_spec", plan_spec)
+    scope = dict(eng.metrics.labels, component="planner")
+    before = {p: _counter(scope, "plans", plan=p) for p in ("pre", "post")}
+    for i, pred in enumerate([Pred(1, "lt", 0.01), Pred(0, "eq", 3.0),
+                              Pred(1, "lt", 0.5), Pred(1, "lt", 0.002),
+                              Pred(0, "eq", 7.0)]):
+        eng.query(X[:4], Q.knn(k=5, n_probe=4).where(pred))
+    eng.query(X[:4], Q.knn(k=5, n_probe=4))          # no predicate
+    for p in ("pre", "post"):
+        assert _counter(scope, "plans", plan=p) - before[p] == \
+            plans.count(p)
+    assert set(plans) == {"pre", "post"}
+    eng.close()
+
+
+def test_untraced_results_equal_without_the_counters(tmp_path, monkeypatch):
+    """Two engines on the same rows, writes and queries, the second with
+    the store's, the planner's and the write path's instruments turned
+    into no-ops: the same ids and scores bit for bit."""
+    from repro_torch.core.optimizer import HybridOptimizer
+    from repro_torch.storage.store import VectorStore
+
+    def drive(tag, paged):
+        cfg = IVFConfig(dim=DIM, target_partition_size=50, kmeans_iters=8,
+                        delta_capacity=64, quantize="int8", rerank_factor=4)
+        eng = MicroNN(dim=DIM, n_attr=2, path=str(tmp_path / f"{tag}.db"),
+                      config=cfg, device="cpu",
+                      memory_budget_mb=0.05 if paged else None)
+        rng = np.random.default_rng(11)
+        X = clustered(1500, 4)
+        A = np.stack([rng.integers(0, 10, 1500), rng.random(1500)],
+                     1).astype(np.float32)
+        eng.upsert(np.arange(1500), X, A)
+        eng.build()
+        out = []
+        for i in range(4):
+            with eng.session() as s:
+                s.upsert(np.arange(2000 + 40 * i, 2040 + 40 * i),
+                         X[40 * i:40 * i + 40], A[:40])
+                s.delete(np.arange(7 * i, 7 * i + 4))
+            for pred in (Pred(1, "lt", 0.02), Pred(0, "eq", float(i))):
+                ids, sc = eng.query(X[100:108], Q.knn(k=10, n_probe=6)
+                                    .where(pred)).to_numpy()
+                out.append((ids.copy(), sc.copy()))
+        eng.close()
+        return out
+
+    for paged in (False, True):
+        on = drive(f"on{paged}", paged)
+        with monkeypatch.context() as m:
+            m.setattr(VectorStore, "_count_read", lambda self, r, b: None)
+            m.setattr(MicroNN, "_write_trace",
+                      lambda self: contextlib.nullcontext())
+            real_init = HybridOptimizer.__init__
+
+            def init(self, *a, **kw):
+                real_init(self, *a, **kw)
+                self._c_plans = {p: SimpleNamespace(inc=lambda n=1: None)
+                                 for p in ("pre", "post")}
+            m.setattr(HybridOptimizer, "__init__", init)
+            off = drive(f"off{paged}", paged)
+        for (i1, s1), (i2, s2) in zip(on, off):
+            assert np.array_equal(i1, i2)
+            assert np.array_equal(s1.view(np.int32), s2.view(np.int32))
 
 
 # -- tracing off: zero cost, zero allocation ---------------------------------

@@ -210,6 +210,36 @@ def test_int8_frames_carry_the_resident_norms(tmp_path):
     assert cache.resident_bytes <= cache.budget_bytes
 
 
+def test_int8_norms_scratch_stays_under_the_budget(tmp_path, monkeypatch):
+    """A fault that fills the whole pool decodes its rows in chunks whose
+    float32 scratch (the decode, its squares, the sum's first half) stays
+    under the pool's budget, and the norms are the unchunked ones bit for
+    bit."""
+    st, X, assign = _mk_store(tmp_path, n=600, k=4)
+    stats = quantize.train(torch.from_numpy(X))
+    codes = quantize.encode(stats, torch.from_numpy(X)).numpy()
+    st.set_code_tier(np.arange(600), codes, *quantize.stats_to_arrays(stats))
+    p_max = int(np.bincount(assign).max())
+    cache = PartitionCache(
+        st, p_max=p_max, payload="int8", qstats=stats, device="cpu",
+        budget_bytes=4 * compute_frame_bytes(p_max, 8, "int8"))
+    decoded = []
+    real = quantize.decode
+
+    def decode(s, c):
+        decoded.append(c.reshape(-1, c.shape[-1]).shape[0])
+        return real(s, c)
+
+    monkeypatch.setattr(quantize, "decode", decode)
+    f = cache.fault([0, 1, 2, 3])
+    assert len(decoded) > 1
+    assert 10 * 8 * max(decoded) <= cache.budget_bytes
+    monkeypatch.undo()
+    whole = quantize.row_norms(stats, cache.payload_pool[f])
+    assert torch.equal(cache.norms_pool[f], whole)
+    cache.unpin(f)
+
+
 def test_clock_eviction_order_second_chance(tmp_path):
     st, _, assign = _mk_store(tmp_path)
     cache = _mk_cache(st, assign, 3)
